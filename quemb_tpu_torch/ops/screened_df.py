@@ -1,0 +1,225 @@
+"""Screened first quarter transform of the DF factor, as a Hopper kernel.
+
+JAX counterpart: ``quemb_tpu/ops/pallas_df.py`` (the Pallas ``_kernel``,
+``PallasDFFactor`` and ``screened_first_transform``).
+
+Computes Bi[P, mu, i] = sum_nu B[P, mu, nu] TA[nu, i] over the 16-AO nu
+blocks that hold at least one reachable AO (the reach mask of
+:func:`quemb_tpu_torch.ops.screening.ao_reach_per_fragment`, reduced to
+any-per-block).  On a CUDA tensor it launches the CUDA C++ kernel in
+``csrc/screened_first_transform.cu``, which loops over the compacted list
+of kept blocks and never reads the columns of a skipped one: a real skip.
+On a CPU tensor it runs :func:`screened_first_transform_plain`, the same
+arithmetic in plain torch.  Nothing falls back from one to the other.
+
+The kernel is compiled with ``nvcc`` for ``sm_90a`` into ``build/`` at the
+repository root on first use (the file name carries a hash of the source
+and flags) and bound with ``ctypes``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+NU_BLOCK = 16
+#: kept-block capacity of the kernel's parameter list (nao <= 8192)
+MAX_BLOCKS = 512
+
+#: kernel launches so far in this process (one per launch, nowhere else)
+LAUNCHES = 0
+
+_SRC = Path(__file__).resolve().parents[1] / "csrc" / (
+    "screened_first_transform.cu"
+)
+_BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
+_NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+_LIB = None
+
+
+def _nvcc() -> str:
+    """Path of ``nvcc``: ``$CUDA_HOME/bin``, then ``/usr/local/cuda/bin``."""
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root:
+            path = Path(root) / "bin" / "nvcc"
+            if path.is_file():
+                return str(path)
+    raise RuntimeError(
+        "nvcc not found in $CUDA_HOME/bin or /usr/local/cuda/bin: the"
+        " screened-DF kernel cannot be built"
+    )
+
+
+def _library_path() -> Path:
+    digest = hashlib.sha256(
+        _SRC.read_bytes() + " ".join(_NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return _BUILD_DIR / f"screened_first_transform-{digest}.so"
+
+
+def build_library() -> dict:
+    """Compile the kernel unless the hashed library is already built.
+
+    Returns ``{"path", "cached", "seconds", "ptxas"}``; ``ptxas`` holds the
+    ``-Xptxas -v`` lines (registers, shared memory, spills) of a fresh
+    build.
+    """
+    so = _library_path()
+    if so.exists():
+        return dict(path=str(so), cached=True, seconds=0.0, ptxas=[])
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # build under a per-process name, then rename: concurrent processes
+    # never load a half-written library
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, so)
+    ptxas = [
+        ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
+        if "ptxas" in ln or "spill" in ln
+    ]
+    return dict(path=str(so), cached=False, seconds=seconds, ptxas=ptxas)
+
+
+def _library():
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(build_library()["path"])
+        fn = lib.screened_first_transform_f32
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def kept_blocks(reach: np.ndarray) -> np.ndarray:
+    """Indices (int32) of the 16-AO blocks holding a reachable AO."""
+    reach = np.asarray(reach, bool)
+    nblk = -(-reach.size // NU_BLOCK)
+    padded = np.zeros(nblk * NU_BLOCK, bool)
+    padded[: reach.size] = reach
+    return np.nonzero(padded.reshape(nblk, NU_BLOCK).any(axis=1))[0].astype(
+        np.int32
+    )
+
+
+def block_rowmask(reach: np.ndarray, dtype, device) -> torch.Tensor:
+    """Per-AO 0/1 weights: 1 where the AO's 16-block is kept.
+
+    This is the per-block mask expanded to AO rows, not the per-AO reach.
+    """
+    nao = np.asarray(reach).size
+    rows = np.zeros(nao, bool)
+    for k in kept_blocks(reach):
+        rows[k * NU_BLOCK : (k + 1) * NU_BLOCK] = True
+    return torch.as_tensor(rows, device=device).to(dtype)
+
+
+def screened_first_transform_plain(
+    B: torch.Tensor, TA: torch.Tensor, rowmask: torch.Tensor
+) -> torch.Tensor:
+    """The kernel's arithmetic in plain torch (the reference it is held to).
+
+    ``rowmask`` comes from :func:`block_rowmask`.
+    """
+    return torch.einsum("pmn,ni->pmi", B, TA * rowmask[:, None])
+
+
+def _check(B: torch.Tensor, TA: torch.Tensor, reach: np.ndarray) -> None:
+    if B.dtype != torch.float32 or TA.dtype != torch.float32:
+        raise TypeError(
+            f"screened_first_transform takes float32, got {B.dtype}, "
+            f"{TA.dtype}"
+        )
+    if B.dim() != 3 or B.shape[1] != B.shape[2]:
+        raise ValueError(f"B must be [naux, nao, nao], got {tuple(B.shape)}")
+    nao = B.shape[1]
+    if TA.dim() != 2 or TA.shape[0] != nao or TA.shape[1] == 0:
+        raise ValueError(
+            f"TA must be [nao={nao}, nemb > 0], got {tuple(TA.shape)}"
+        )
+    if np.shape(reach) != (nao,):
+        raise ValueError(f"reach must be [nao={nao}], got {np.shape(reach)}")
+    if B.device != TA.device:
+        raise ValueError(f"B on {B.device}, TA on {TA.device}")
+    if not (B.is_contiguous() and TA.is_contiguous()):
+        raise ValueError("B and TA must be contiguous")
+
+
+def screened_first_transform(
+    B: torch.Tensor, TA: torch.Tensor, reach: np.ndarray
+) -> torch.Tensor:
+    """Bi[P, mu, i] = sum over kept nu blocks of B[P, mu, nu] TA[nu, i].
+
+    ``B`` f32 [naux, nao, nao] and ``TA`` f32 [nao, nemb], contiguous, on
+    one device; ``reach`` a host bool [nao].  Returns a new f32
+    [naux, nao, nemb] on that device.  A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel on the current stream
+    without synchronising, or raises.
+    """
+    global LAUNCHES
+    _check(B, TA, reach)
+    if B.device.type == "cpu":
+        return screened_first_transform_plain(
+            B, TA, block_rowmask(reach, B.dtype, B.device)
+        )
+    if B.device.type != "cuda":
+        raise ValueError(f"no screened-DF kernel for device {B.device}")
+    naux, nao, _ = B.shape
+    nemb = TA.shape[1]
+    blocks = np.ascontiguousarray(kept_blocks(reach))
+    if blocks.size > MAX_BLOCKS:
+        raise ValueError(f"nao={nao} exceeds the kernel's {MAX_BLOCKS} blocks")
+    out = torch.empty((naux, nao, nemb), dtype=torch.float32, device=B.device)
+    stream = torch.cuda.current_stream(B.device).cuda_stream
+    rc = _library().screened_first_transform_f32(
+        B.data_ptr(), TA.data_ptr(), blocks.ctypes.data, int(blocks.size),
+        out.data_ptr(), naux * nao, nao, nemb, stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"screened_first_transform kernel: CUDA error {rc}")
+    LAUNCHES += 1
+    return out
+
+
+class ScreenedDFFactor:
+    """The DF factor held once on the device in f32 for the screened
+    transform (counterpart of ``PallasDFFactor``).
+
+    Built from the f64 host factor [naux, nao, nao]; kept in its natural
+    layout, with no transpose and no padding.
+    """
+
+    def __init__(self, B: np.ndarray, device: torch.device):
+        self.B32 = torch.as_tensor(
+            np.ascontiguousarray(np.asarray(B, np.float32)), device=device
+        )
+
+    def first_transform(self, TA: np.ndarray, reach: np.ndarray):
+        """Device f32 [naux, nao, nemb] half transform of ``TA``."""
+        TA32 = torch.as_tensor(
+            np.ascontiguousarray(np.asarray(TA, np.float32)),
+            device=self.B32.device,
+        )
+        return screened_first_transform(self.B32, TA32, reach)

@@ -22,3 +22,11 @@ if not ON_TPU:
 jax.config.update("jax_enable_x64", True)
 
 DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card (run on the card with `pytest -m gpu`);"
+        " skips without one",
+    )

@@ -1,0 +1,119 @@
+"""Screened first quarter transform: the port's kernel module against the
+JAX package's Pallas kernel.
+
+On the CPU the port's wrapper runs its plain torch version; it is held to
+``quemb_tpu.ops.pallas_df.screened_first_transform`` in interpret mode at
+1e-5 relative (both sum the same f32 products, in different
+orders).  The ``gpu`` test holds the CUDA kernel to the plain
+version on the card; the JAX package is imported inside the tests that
+use it, so that the ``gpu`` test also runs where JAX is absent:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_screened_df.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from quemb_tpu_torch.ops import screened_df as sd
+
+torch.set_num_threads(1)
+
+REL_TOL = 1e-5
+
+
+def _skip_case():
+    """nao 70 (five 16-blocks, the last ragged): blocks 1 and 3 are
+    unreachable, block 4 is reachable through one AO only."""
+    reach = np.ones(70, bool)
+    reach[16:32] = False
+    reach[48:70] = False
+    reach[66] = True
+    return 64, 70, 37, reach
+
+
+def _full_case():
+    return 24, 21, 5, np.ones(21, bool)
+
+
+CASES = {"full": _full_case, "skip": _skip_case}
+
+
+def _inputs(case, seed=0):
+    naux, nao, nemb, reach = CASES[case]()
+    rng = np.random.default_rng(seed)
+    L = rng.standard_normal((naux, nao, nao))
+    B = (L + L.transpose(0, 2, 1)).astype(np.float32)
+    TA = rng.standard_normal((nao, nemb)).astype(np.float32)
+    return B, TA, reach
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_matches_jax_kernel(case):
+    from quemb_tpu.ops.pallas_df import screened_first_transform as jax_sft
+
+    B, TA, reach = _inputs(case)
+    ref = np.asarray(jax_sft(B, TA, reach, interpret=True))
+    out = sd.screened_first_transform(
+        torch.as_tensor(B), torch.as_tensor(TA), reach
+    ).numpy()
+    assert out.shape == ref.shape == (B.shape[0], B.shape[1], TA.shape[1])
+    assert np.abs(out - ref).max() <= REL_TOL * np.abs(ref).max()
+
+
+def test_skip_case_drops_whole_blocks_only():
+    B, TA, reach = _inputs("skip")
+    assert sd.kept_blocks(reach).tolist() == [0, 2, 4]
+    rows = sd.block_rowmask(reach, torch.float64, "cpu").numpy()
+    kept = np.r_[0:16, 32:48, 64:70]
+    assert rows[kept].all() and rows.sum() == kept.size
+    # the skip is by block: unreachable AOs inside a kept block still count
+    out = sd.screened_first_transform(
+        torch.as_tensor(B), torch.as_tensor(TA), reach
+    ).numpy().astype(np.float64)
+    ref = np.einsum("pmn,ni->pmi", B.astype(np.float64),
+                    TA.astype(np.float64) * rows[:, None])
+    assert np.abs(out - ref).max() <= REL_TOL * np.abs(ref).max()
+
+
+def test_cpu_tensor_takes_plain_version_without_counting():
+    B, TA, reach = _inputs("full")
+    before = sd.LAUNCHES
+    sd.screened_first_transform(torch.as_tensor(B), torch.as_tensor(TA),
+                                reach)
+    assert sd.LAUNCHES == before
+
+
+@pytest.mark.parametrize("bad", ["f64", "shape", "reach", "strided"])
+def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    B, TA, reach = _inputs("full")
+    B, TA = torch.as_tensor(B), torch.as_tensor(TA)
+    if bad == "f64":
+        B = B.double()
+    elif bad == "shape":
+        TA = TA[:-1].contiguous()
+    elif bad == "reach":
+        reach = reach[:-1]
+    else:
+        TA = torch.as_tensor(np.asfortranarray(TA.numpy()))
+    with pytest.raises((TypeError, ValueError)):
+        sd.screened_first_transform(B, TA, reach)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_cuda_kernel_matches_plain_on_card(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    B, TA, reach = _inputs(case)
+    B = torch.as_tensor(B, device="cuda")
+    TA = torch.as_tensor(TA, device="cuda")
+    before = sd.LAUNCHES
+    out = sd.screened_first_transform(B, TA, reach)
+    ref = sd.screened_first_transform_plain(
+        B, TA, sd.block_rowmask(reach, B.dtype, B.device)
+    )
+    torch.cuda.synchronize()
+    assert sd.LAUNCHES == before + 1
+    err = float((out - ref).abs().max())
+    assert err <= REL_TOL * float(ref.abs().max())

@@ -9,10 +9,13 @@ one line, and any failure raises (non-zero exit, no ``ok`` line):
 0. the device: CUDA name, and ``nvidia-smi`` name and power limit;
 1. build the screened-DF CUDA kernel from ``quemb_tpu_torch/csrc``;
 2. kernel against its plain torch version on the card, on every octane
-   fragment's screened basis against the octane Cholesky factor and on a
-   synthetic case with skipped and partly reachable blocks; CUDA-event
-   timings of both at the octane shapes (median of 20, each over 10
-   back-to-back calls);
+   fragment's screened basis against the octane Cholesky factor, on a
+   synthetic case with skipped and partly reachable blocks, and on a
+   synthetic factor at C40H82 shapes (a window of 8 of 18 blocks, and the
+   same with the ragged tail block); at octane fragment 0 and at the C40
+   window, device times of the kernel, the plain version and one library
+   call (``torch.matmul`` on the masked basis, TF32 off), warm and with
+   the L2 flushed, beside the call's bound;
 3. the f32 tier: ``BE(..., int_transform="sparse-DF",
    auxbasis="cholesky")`` under ``QUEMB_TPU_CCSD_F32_ONLY=1``, which must
    launch the kernel once per fragment, then a one-shot CCSD;
@@ -25,6 +28,7 @@ limit, and ``{"ok": true, "device": {...}}``.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -38,11 +42,25 @@ XYZ = os.path.join(HERE, "tests", "data", "xyz", "octane.xyz")
 #: one-shot octane BE2-CCSD correlation energy of the JAX package
 #: (BENCH_r05.json ``oneshot_ecorr``, CCSD tolerance 1e-6)
 ECORR_REF = -0.5499458109
-#: kernel against plain version, relative to max|plain|: both sum the same
-#: f32 products (at most 16 per kept block), in different orders
+#: kernel against plain version, relative to max|plain|: the kernel sums
+#: 3xTF32 products (FP32 to about 1e-6 relative), the plain version FP32
+#: products, in different orders
 KERNEL_REL_TOL = 1e-5
 N_TIMINGS = 20  # timings of each version; the median is reported
 CALLS_PER_TIMING = 10  # back-to-back calls between two CUDA events
+#: device cycles of sleep queued before a timing, so that the host has
+#: enqueued every timed call before the first one starts
+SLEEP_CYCLES = 2_000_000
+FLUSH_BYTES = 256 << 20  # written between cold calls: 5x the 50 MB L2
+#: H100 SXM peaks (NVIDIA data sheet): HBM3 rate and FP32 rate
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+#: C40H82 / STO-3G at etb 6.0 (BENCH_r05.json ``chain_demo``): naux, nao
+#: and the padded nemb; a window of 8 of its 18 blocks is kept, close to
+#: the chain's mean reach fraction 0.4539
+C40_SHAPE = (3460, 282, 42)
+C40_WINDOW = range(5, 13)
+C40_TAIL_BLOCK = 17  # AOs 272-281: the ragged last block
 
 
 def phase(n, **facts):
@@ -57,17 +75,68 @@ def card_line() -> str:
     ).stdout.strip()
 
 
-def event_ms(fn) -> float:
-    """Milliseconds per call, from CUDA events around back-to-back calls
-    (host work of each call included where it outlasts the device's)."""
+def device_ms(fn, calls=CALLS_PER_TIMING, flush=None) -> float:
+    """Device milliseconds per call, from CUDA events around ``calls``
+    back-to-back calls queued behind a sleep (so the host's enqueue time
+    is hidden); ``flush`` is first overwritten to evict the L2."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if flush is not None:
+        flush.add_(1.0)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
-    for _ in range(CALLS_PER_TIMING):
+    for _ in range(calls):
         fn()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / CALLS_PER_TIMING
+    return start.elapsed_time(end) / calls
+
+
+def call_bound(sd, naux, nao, nemb, reach) -> dict:
+    """Bytes and FLOP of one call (the kept columns of B and rows of TA
+    read once, the output written once) and the least time the card takes
+    for them, at the H100's HBM and FP32 peaks."""
+    kept = sum(min(sd.NU_BLOCK, nao - sd.NU_BLOCK * b)
+               for b in sd.kept_blocks(reach).tolist())
+    rows = naux * nao
+    nbytes = 4 * (rows * kept + kept * nemb + rows * nemb)
+    flop = 2 * rows * kept * nemb
+    t_bytes, t_flop = nbytes / HBM_BYTES_PER_S, flop / FP32_FLOP_PER_S
+    return dict(bytes=nbytes, flop=flop, bound_ms=1e3 * max(t_bytes, t_flop),
+                bound_by="bytes" if t_bytes >= t_flop else "operations")
+
+
+def time_versions(sd, B, TA, reach, flush) -> dict:
+    """Warm and cold device ms of the kernel, the plain version and the
+    library call on the same inputs (in turns; medians), with the bound.
+    The row mask and the masked basis are built outside the timed
+    region."""
+    naux, nao, _ = B.shape
+    rowmask = sd.block_rowmask(reach, torch.float32, B.device)
+    TA_masked = TA * rowmask[:, None]
+    Bv = B.view(naux * nao, nao)
+    versions = {
+        "": lambda: sd.screened_first_transform(B, TA, reach),
+        "plain_": lambda: sd.screened_first_transform_plain(B, TA, rowmask),
+        "library_": lambda: torch.matmul(Bv, TA_masked),
+    }
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for fn in versions.values():  # warm up
+            fn()
+        times = {f"{k}{w}": [] for k in versions for w in ("ms", "cold_ms")}
+        for _ in range(N_TIMINGS):
+            for k, fn in versions.items():
+                times[f"{k}ms"].append(device_ms(fn))
+                times[f"{k}cold_ms"].append(device_ms(fn, 1, flush))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    out = {k: float(np.median(v)) for k, v in times.items()}
+    out.update(call_bound(sd, naux, nao, TA.shape[1], reach))
+    out["roofline_share_cold"] = out["bound_ms"] / out["cold_ms"]
+    out["shape"] = [naux, nao, TA.shape[1], int(sd.kept_blocks(reach).size)]
+    return out
 
 
 def fragment_bases(mf, fobj):
@@ -84,6 +153,18 @@ def fragment_bases(mf, fobj):
         fr.sd(W, lmo, mf.mol.nelectron // 2, thr_bath=1.0e-10)
         TAs.append(fr.TA)
     return TAs
+
+
+def c40_case(sd, device):
+    """The synthetic factor at C40 shapes, from a seeded generator on the
+    card, a basis, and the reach of the window of kept blocks."""
+    naux, nao, nemb = C40_SHAPE
+    gen = torch.Generator(device=device).manual_seed(0)
+    B = torch.randn((naux, nao, nao), generator=gen, device=device)
+    TA = torch.randn((nao, nemb), generator=gen, device=device)
+    reach = np.zeros(nao, bool)
+    reach[sd.NU_BLOCK * C40_WINDOW.start:sd.NU_BLOCK * C40_WINDOW.stop] = 1
+    return B, TA, reach
 
 
 def check_kernel(sd, B, TA, reach):
@@ -121,8 +202,13 @@ def main():
 
     # ---- 1. build the kernel
     build = sd.build_library()
+    ptxas = [ln for ln in build["ptxas"] if "Used" in ln or "spill" in ln]
+    spills = [ln for ln in ptxas
+              if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
     phase(1, build_seconds=build["seconds"], cached=build["cached"],
-          ptxas=[ln for ln in build["ptxas"] if "Used" in ln or "spill" in ln])
+          ptxas=ptxas)
+    if spills:
+        raise AssertionError(f"the kernel spills registers: {spills}")
 
     # ---- 2. kernel against the plain version on the card
     cuda = torch.device("cuda")
@@ -145,44 +231,45 @@ def main():
     # synthetic: nao 70 (five 16-blocks, the last one ragged), blocks 1
     # and 3 unreachable, block 4 reachable through one AO only
     rng = np.random.default_rng(0)
-    nao, naux, nemb = 70, 64, 37
-    reach = np.ones(nao, bool)
+    nao_s, naux_s, nemb_s = 70, 64, 37
+    reach = np.ones(nao_s, bool)
     reach[16:32] = False
     reach[48:70] = False
     reach[66] = True
     Bs = torch.as_tensor(
-        rng.standard_normal((naux, nao, nao)).astype(np.float32), device=cuda
+        rng.standard_normal((naux_s, nao_s, nao_s)).astype(np.float32),
+        device=cuda,
     )
     TAs = torch.as_tensor(
-        rng.standard_normal((nao, nemb)).astype(np.float32), device=cuda
+        rng.standard_normal((nao_s, nemb_s)).astype(np.float32), device=cuda
     )
     if sd.kept_blocks(reach).tolist() != [0, 2, 4]:
         raise AssertionError("synthetic case: kept blocks are not 0, 2, 4")
     max_err = max(max_err, check_kernel(sd, Bs, TAs, reach))
-    # timings at the octane shapes (first fragment), kernel and plain in
-    # turns on the same inputs; the row mask of the plain version is
-    # built once, outside the timed region
+    # synthetic factor at C40 shapes, from a seeded generator on the card:
+    # a window of 8 of 18 blocks, then the same with the ragged tail block
+    Bc, TAc, reach_c40 = c40_case(sd, cuda)
+    reach_tail = reach_c40.copy()
+    reach_tail[sd.NU_BLOCK * C40_TAIL_BLOCK + 3] = True
+    if sd.kept_blocks(reach_tail).tolist() != [*C40_WINDOW, C40_TAIL_BLOCK]:
+        raise AssertionError("C40 case: kept blocks are not the window + 17")
+    c40_err = max(check_kernel(sd, Bc, TAc, r) for r in (reach_c40,
+                                                          reach_tail))
+    # device times at octane fragment 0 and at the C40 window
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=cuda)
+    flush.zero_()
     TA32, reach = screened[0]
-    rowmask = sd.block_rowmask(reach, torch.float32, cuda)
-    for _ in range(3):  # warm up both
-        sd.screened_first_transform(B32, TA32, reach)
-        sd.screened_first_transform_plain(B32, TA32, rowmask)
-    k_ms, p_ms = [], []
-    for _ in range(N_TIMINGS):
-        p_ms.append(event_ms(
-            lambda: sd.screened_first_transform_plain(B32, TA32, rowmask)
-        ))
-        k_ms.append(event_ms(
-            lambda: sd.screened_first_transform(B32, TA32, reach)
-        ))
-    kernel_ms = float(np.median(k_ms))
-    plain_ms = float(np.median(p_ms))
-    phase(2, octane_shapes=shapes, synthetic=[naux, nao, nao, nemb],
-          max_abs_err=max_err, tol_rel=KERNEL_REL_TOL,
-          kernel_ms_median=kernel_ms, plain_ms_median=plain_ms,
-          timings=N_TIMINGS, calls_per_timing=CALLS_PER_TIMING,
-          timed_shape=shapes[0], card=card)
-    del sdf, B32, Bs, TAs, screened
+    timed = {
+        "octane_frag0": time_versions(sd, B32, TA32, reach, flush),
+        "c40_8of18": time_versions(sd, Bc, TAc, reach_c40, flush),
+    }
+    phase(2, octane_shapes=shapes, synthetic=[naux_s, nao_s, nao_s, nemb_s],
+          c40=[*Bc.shape, TAc.shape[1]], max_abs_err=max_err,
+          c40_max_abs_err=c40_err, tol_rel=KERNEL_REL_TOL, timed=timed,
+          timings=N_TIMINGS, calls_per_timing=CALLS_PER_TIMING, card=card)
+    max_err = max(max_err, c40_err)
+    del sdf, B32, Bs, TAs, screened, Bc, TAc, flush
+    torch.cuda.empty_cache()
 
     # ---- 3. main path, f32 tier: the kernel runs once per fragment
     os.environ["QUEMB_TPU_CCSD_F32_ONLY"] = "1"
@@ -248,6 +335,7 @@ def main():
     phase(5, first_eeval_s=walls[0], warm_eeval_s=walls[1],
           warm_error_only_s=walls[2], error_norm=float(ret[0]), card=card)
 
+    main = timed["octane_frag0"]
     print(json.dumps({"kernels": [{
         "name": "screened_first_transform",
         "route": "cuda",
@@ -255,8 +343,16 @@ def main():
         "replaces": "quemb_tpu/ops/pallas_df.py:30",
         "launches": launches,
         "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+        "cold_ms": main["cold_ms"],
+        "shapes": {k: {f: v[f] for f in (
+            "shape", "ms", "cold_ms", "plain_ms", "plain_cold_ms",
+            "library_ms", "library_cold_ms", "bound_ms", "bound_by",
+            "roofline_share_cold")} for k, v in timed.items()},
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,8 @@ blocks that hold at least one reachable AO (the reach mask of
 any-per-block).  On a CUDA tensor it launches the CUDA C++ kernel in
 ``csrc/screened_first_transform.cu``, which loops over the compacted list
 of kept blocks and never reads the columns of a skipped one: a real skip.
+:func:`plan_launches` splits a kept list whose rows of TA do not fit the
+kernel's shared memory over launches that accumulate.
 On a CPU tensor it runs :func:`screened_first_transform_plain`, the same
 arithmetic in plain torch.  Nothing falls back from one to the other.
 
@@ -32,6 +34,11 @@ import torch
 NU_BLOCK = 16
 #: kept-block capacity of the kernel's parameter list (nao <= 8192)
 MAX_BLOCKS = 512
+#: bytes of the kept rows of TA that one launch stages in shared memory,
+#: per TF32 part (18 blocks of a 64-column tile); a longer kept list is
+#: split over launches that accumulate.  The kernel owns the rest of its
+#: layout and rejects a launch that does not fit.
+TA_SMEM_MAX = 18 * NU_BLOCK * 64 * 4
 
 #: kernel launches so far in this process (one per launch, nowhere else)
 LAUNCHES = 0
@@ -106,7 +113,7 @@ def _library():
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
         _LIB = lib
@@ -122,6 +129,26 @@ def kept_blocks(reach: np.ndarray) -> np.ndarray:
     return np.nonzero(padded.reshape(nblk, NU_BLOCK).any(axis=1))[0].astype(
         np.int32
     )
+
+
+def tile_width(nemb: int) -> int:
+    """Columns of the kernel's output tile: nemb rounded up to 8, at most
+    64 (a wider nemb loops over 64-column chunks)."""
+    return min(64, -(-nemb // 8) * 8)
+
+
+def plan_launches(nemb: int, blocks: np.ndarray) -> list[np.ndarray]:
+    """The kept blocks of each kernel launch of one transform.
+
+    The kept list is split into groups whose TA rows fit ``TA_SMEM_MAX``
+    (one group, one launch, up to 18 blocks at nemb <= 64); the launches
+    after the first add to the output.  No kept block: one launch that
+    writes zeros.
+    """
+    blocks = np.asarray(blocks, np.int32)
+    group = TA_SMEM_MAX // (NU_BLOCK * tile_width(nemb) * 4)
+    return [blocks[i:i + group]
+            for i in range(0, blocks.size, group)] or [blocks]
 
 
 def block_rowmask(reach: np.ndarray, dtype, device) -> torch.Tensor:
@@ -178,7 +205,6 @@ def screened_first_transform(
     version; a CUDA tensor launches the kernel on the current stream
     without synchronising, or raises.
     """
-    global LAUNCHES
     _check(B, TA, reach)
     if B.device.type == "cpu":
         return screened_first_transform_plain(
@@ -186,20 +212,34 @@ def screened_first_transform(
         )
     if B.device.type != "cuda":
         raise ValueError(f"no screened-DF kernel for device {B.device}")
+    nao = B.shape[1]
+    if nao > MAX_BLOCKS * NU_BLOCK:
+        raise ValueError(f"nao={nao} exceeds the kernel's {MAX_BLOCKS} blocks")
+    if B.data_ptr() % 16:
+        raise ValueError("B must start on a 16-byte boundary")
+    return run_plan(B, TA, plan_launches(TA.shape[1], kept_blocks(reach)))
+
+
+def run_plan(B: torch.Tensor, TA: torch.Tensor, plan: list[np.ndarray]):
+    """Launch the kernel once per kept list of ``plan`` (see
+    :func:`plan_launches`) into a new output, on the current stream."""
+    global LAUNCHES
     naux, nao, _ = B.shape
     nemb = TA.shape[1]
-    blocks = np.ascontiguousarray(kept_blocks(reach))
-    if blocks.size > MAX_BLOCKS:
-        raise ValueError(f"nao={nao} exceeds the kernel's {MAX_BLOCKS} blocks")
     out = torch.empty((naux, nao, nemb), dtype=torch.float32, device=B.device)
     stream = torch.cuda.current_stream(B.device).cuda_stream
-    rc = _library().screened_first_transform_f32(
-        B.data_ptr(), TA.data_ptr(), blocks.ctypes.data, int(blocks.size),
-        out.data_ptr(), naux * nao, nao, nemb, stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"screened_first_transform kernel: CUDA error {rc}")
-    LAUNCHES += 1
+    for k, blocks in enumerate(plan):
+        blocks = np.ascontiguousarray(blocks, np.int32)
+        rc = _library().screened_first_transform_f32(
+            B.data_ptr(), TA.data_ptr(), blocks.ctypes.data,
+            int(blocks.size), out.data_ptr(), naux * nao, nao, nemb,
+            int(k > 0), stream,
+        )
+        if rc != 0:
+            raise RuntimeError(
+                f"screened_first_transform kernel: CUDA error {rc}"
+            )
+        LAUNCHES += 1
     return out
 
 

@@ -2,14 +2,28 @@
 
     python3 tools/profile_port.py [--trace PATH]
 
-Two parts, each printed as one JSON line (plus the profiler tables):
+Three parts, printed as JSON lines (plus the profiler tables):
 
-- ``kernel``: the screened first transform at octane fragment 0 (the
-  octane Cholesky factor, naux 777, nao 58), the CUDA kernel, its plain
-  torch version, and the kernel with blocks 1 and 2 of 4 dropped from
-  the reach.  Per version: device microseconds per call from
-  ``torch.profiler`` over 20 calls, and CUDA-event milliseconds per call,
-  single and over 10 back-to-back calls (median of 20 each);
+- ``kernel``: the screened first transform, one line a case: octane
+  fragment 0 (the octane Cholesky factor, naux 777, nao 58) and the
+  synthetic C40H82 factor of ``chip_smoke.py`` (naux 3460, nao 282,
+  nemb 42) with a centred window of 8, 10, 11, 12, 14 and all 18 of its
+  blocks kept.  Versions: the CUDA kernel, its plain torch version and
+  one library call (``torch.matmul`` on the masked basis, TF32 off), and
+  at octane the kernel with blocks 1 and 2 of 4 dropped from the reach.
+  Per version: device microseconds per call from ``torch.profiler`` over
+  20 calls, by kernel name and summed; with the call's bound;
+- ``kernel_parts``: what holds the kernel back: device microseconds per
+  call (CUDA events around 10 calls queued behind a sleep, median of 10)
+  of the kernel as built and of variants of its source, built side by
+  side.  At octane fragment 0 and at the C40 window (8 of 18 blocks): the
+  TMA copies taken out (the math alone), the math taken out (the copies
+  and the write-back alone), and both (staging TA, the barriers and the
+  write-back).  At the C40 window also the routes the design did not
+  take: FP32 FMAs on the CUDA cores (with and without the copies), 8-byte
+  ``cp.async`` gathers, one 1D bulk copy a row, and stores straight from
+  the accumulators.  Variants that compute the whole transform are held
+  to the plain version (``max_rel_err``);
 - ``objective``: the f64 route ``BE(mf, fobj)`` at CCSD tolerance 1e-6,
   ``be_func`` with ``eeval=True`` at the seeded potential of
   ``chip_smoke.py`` (two warm-up evaluations first): the unprofiled wall,
@@ -38,11 +52,17 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import FIXTURE, XYZ, card_line, fragment_bases  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    FIXTURE, XYZ, c40_case, call_bound, card_line, device_ms,
+    fragment_bases,
+)
 
-N_MEDIAN = 20  # timings per version; the median is reported
 N_PROFILED = 20  # calls of each kernel version under the profiler
+N_PARTS_TIMINGS = 10  # event timings of each kernel build; the median
 TOP_OPS = 12  # operators and kernels listed by device time
+#: kept blocks of the C40 cases of part ``kernel``, a centred window each
+#: (8: chip_smoke's window, 18: every block, the ragged tail included)
+C40_KEPT = (8, 10, 11, 12, 14, 18)
 #: device events the profiler records for its own buffers
 PROFILER_OVERHEAD = {"Activity Buffer Request", "Buffer Flush"}
 
@@ -74,64 +94,293 @@ def _device_count(prof) -> int:
                and e.name not in PROFILER_OVERHEAD)
 
 
-def _event_ms(fn, reps: int) -> float:
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+def _device_per_call(fn) -> dict:
+    """Device microseconds per call of ``fn`` under the profiler, by
+    kernel name and summed."""
+    def calls():
+        for _ in range(N_PROFILED):
+            fn()
+
+    kernels = {k: us / N_PROFILED
+               for k, us in _device_us(_profile(calls)).items()}
+    return dict(device_us_per_call=float(sum(kernels.values())),
+                device_kernels_us=kernels)
 
 
-def profile_kernel(mf, fobj, card):
-    from quemb_tpu_torch.ops import screened_df as sd
-    from quemb_tpu_torch.ops.df import cholesky_df_factor
-    from quemb_tpu_torch.ops.sparse_df import SparseDF
-
-    cuda = torch.device("cuda")
-    sd.build_library()
-    B = cholesky_df_factor(mf.mol, tol=1.0e-10, eri=mf.get_eri())
-    sdf = SparseDF.from_factor(mf.mol, B, device=cuda)
-    B32 = sdf.factor.B32
-    TA_eff, reach = sdf.screen(fragment_bases(mf, fobj)[0])
-    TA32 = torch.as_tensor(TA_eff.astype(np.float32), device=cuda)
-    rowmask = sd.block_rowmask(reach, torch.float32, cuda)
-    reach2 = reach.copy()
-    reach2[16:48] = False  # blocks 1 and 2 of 4
+def _profile_shape(sd, name, B, TA, reach, card, extra=()):
+    naux, nao, _ = B.shape
+    rowmask = sd.block_rowmask(reach, torch.float32, B.device)
+    TA_masked = TA * rowmask[:, None]
+    Bv = B.view(naux * nao, nao)
     versions = {
-        "kernel": lambda: sd.screened_first_transform(B32, TA32, reach),
-        "plain": lambda: sd.screened_first_transform_plain(
-            B32, TA32, rowmask),
-        "kernel_2of4_blocks": lambda: sd.screened_first_transform(
-            B32, TA32, reach2),
+        "kernel": lambda: sd.screened_first_transform(B, TA, reach),
+        "plain": lambda: sd.screened_first_transform_plain(B, TA, rowmask),
+        "library": lambda: torch.matmul(Bv, TA_masked),
+        **{k: (lambda r=r: sd.screened_first_transform(B, TA, r))
+           for k, r in extra},
     }
+    torch.backends.cuda.matmul.allow_tf32 = False
     for fn in versions.values():  # warm up
         fn()
         fn()
     torch.cuda.synchronize()
-    out = {}
-    for name, fn in versions.items():
-        single = [_event_ms(fn, 1) for _ in range(N_MEDIAN)]
-        loop = [_event_ms(fn, 10) for _ in range(N_MEDIAN)]
-
-        def calls(fn=fn):
-            for _ in range(N_PROFILED):
-                fn()
-
-        prof = _profile(calls)
-        kernels = {k: us / N_PROFILED
-                   for k, us in _device_us(prof).items()}
-        out[name] = dict(
-            event_ms_single=float(np.median(single)),
-            event_ms_loop10=float(np.median(loop)),
-            device_us_per_call=float(sum(kernels.values())),
-            device_kernels_us=kernels,
-        )
-    print(json.dumps({"part": "kernel", "shape": [*B32.shape,
-                      TA32.shape[1], int(reach.sum())],
+    out = {k: _device_per_call(fn) for k, fn in versions.items()}
+    print(json.dumps({"part": "kernel", "case": name,
+                      "shape": [naux, nao, TA.shape[1],
+                                int(sd.kept_blocks(reach).size)],
+                      **call_bound(sd, naux, nao, TA.shape[1], reach),
                       "card": card, **out}), flush=True)
+
+
+def _octane_case(sd, mf, fobj):
+    """The octane Cholesky factor on the card, fragment 0's screened basis
+    and its reach."""
+    from quemb_tpu_torch.ops.df import cholesky_df_factor
+    from quemb_tpu_torch.ops.sparse_df import SparseDF
+
+    cuda = torch.device("cuda")
+    B = cholesky_df_factor(mf.mol, tol=1.0e-10, eri=mf.get_eri())
+    sdf = SparseDF.from_factor(mf.mol, B, device=cuda)
+    TA_eff, reach = sdf.screen(fragment_bases(mf, fobj)[0])
+    TA32 = torch.as_tensor(TA_eff.astype(np.float32), device=cuda)
+    return sdf.factor.B32, TA32, reach
+
+
+def profile_kernel(mf, fobj, card):
+    from quemb_tpu_torch.ops import screened_df as sd
+
+    sd.build_library()
+    B32, TA32, reach = _octane_case(sd, mf, fobj)
+    reach2 = reach.copy()
+    reach2[16:48] = False  # blocks 1 and 2 of 4
+    _profile_shape(sd, "octane_frag0", B32, TA32, reach, card,
+                   extra=[("kernel_2of4_blocks", reach2)])
+    B, TA, _ = c40_case(sd, torch.device("cuda"))
+    nblk = -(-B.shape[1] // sd.NU_BLOCK)
+    for k in C40_KEPT:
+        reach = np.zeros(B.shape[1], bool)
+        start = (nblk - k) // 2
+        reach[sd.NU_BLOCK * start:sd.NU_BLOCK * (start + k)] = True
+        _profile_shape(sd, f"c40_{k}of{nblk}", B, TA, reach, card)
+    del B, TA
+    torch.cuda.empty_cache()
+
+
+#: source edits for ``kernel_parts``: each variant of the kernel is its
+#: source with the edits of its entry applied in turn
+_NO_COPY = ("    mbar_arrive_expect_tx(&bars[slot], kb * BLOCK_TILE * 4);\n"
+            "    for (int jj = 0; jj < kb; ++jj)",
+            "    mbar_arrive_expect_tx(&bars[slot], 0);\n"
+            "    for (int jj = 0; jj < 0; ++jj)")
+_NO_MATH = ("    for (int j = j0; j < j1; ++j) {\n      const int o = gq",
+            "    for (int j = j0; j < j0; ++j) {\n      const int o = gq")
+# the TMA loads of one step, which the copy routes below replace
+_TMA_STEP = """\
+    float* dst = ring + slot * slot_floats;
+    mbar_arrive_expect_tx(&bars[slot], kb * BLOCK_TILE * 4);
+    for (int jj = 0; jj < kb; ++jj)
+      for (int gg = 0; gg < G; ++gg)
+        tma_load_2d(dst + (jj * G + gg) * box_floats, &tmap,
+                    gg * nao - (gg * nao) % 4 + NU_BLOCK * blk_s[j0 + jj], y,
+                    &bars[slot]);
+"""
+_TILE_ROWS = """\
+    float* dst = ring + slot * slot_floats;
+    const long long r0 = static_cast<long long>(y) * G;
+    const int nrow = static_cast<int>(
+        min(static_cast<long long>(ROW_TILE), rows - r0));
+"""
+# every thread, not thread 0 alone, issues a step's copies
+_EVERY_THREAD_COPIES = (
+    ("  if (tid == 0)\n    for (int s = 0; s < STAGES; ++s) issue(s, s);",
+     "  for (int s = 0; s < STAGES; ++s) issue(s, s);"),
+    ("    if (tid == 0) issue(step + STAGES, slot);",
+     "    issue(step + STAGES, slot);"),
+)
+# one 1D bulk copy (TMA) of 20 floats a row and kept block, spread over the
+# threads, onto the same mbarrier; every row's box starts on the 16-byte
+# boundary at or before its block, as the 2D boxes do
+_BULK_PER_ROW = (*_EVERY_THREAD_COPIES, (_TMA_STEP, _TILE_ROWS + r"""
+    if (tid == 0) mbar_arrive_expect_tx(&bars[slot], kb * nrow * BOX_W * 4);
+    for (int e = tid; e < kb * nrow; e += THREADS) {
+      const int jj = e / nrow, r = e % nrow, h = r % G;
+      const float* src = p.B + (r0 + r - h) * nao + h * nao - h * nao % 4 +
+                         NU_BLOCK * blk_s[j0 + jj];
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+          " [%0], [%1], %2, [%3];\n" ::"r"(
+              smem_u32(dst + (jj * G + h) * box_floats + (r / G) * BOX_W)),
+          "l"(src), "r"(BOX_W * 4), "r"(smem_u32(&bars[slot]))
+          : "memory");
+    }
+"""))
+# 8-byte cp.async gathers of each row's kept columns (nao even), one
+# commit group a step, waited for two steps later
+_GATHER = (
+    *_EVERY_THREAD_COPIES,
+    ("    if (step >= my_steps) return;",
+     "    if (step >= my_steps) {\n"
+     "      asm volatile(\"cp.async.commit_group;\\n\" ::: \"memory\");\n"
+     "      return;\n    }"),
+    (_TMA_STEP, _TILE_ROWS + r"""
+    for (int e = tid; e < kb * nrow * (NU_BLOCK / 2); e += THREADS) {
+      const int jj = e / (nrow * (NU_BLOCK / 2));
+      const int r = e / (NU_BLOCK / 2) % nrow;
+      const int k = 2 * (e % (NU_BLOCK / 2));
+      const int nu = NU_BLOCK * blk_s[j0 + jj] + k;
+      float* d = dst + (jj * G + r % G) * box_floats + (r / G) * BOX_W +
+                 (r % G) * nao % 4 + k;
+      if (nu < nao)
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                         smem_u32(d)),
+                     "l"(p.B + (r0 + r) * nao + nu)
+                     : "memory");
+      else
+        d[0] = d[1] = 0.0f;
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+"""),
+    ("    mbar_wait(&bars[slot], (step / STAGES) & 1);",
+     "    asm volatile(\"cp.async.wait_group 1;\\n\" ::: \"memory\");\n"
+     "    __syncthreads();"),
+)
+# FP32 FMAs on the CUDA cores instead of 3xTF32 on the tensor cores: TA
+# staged as FP32, the same warp tiles and accumulator layout
+_FP32_FMA = (
+    ("              tf32_split(v[u], ta_big[cc * ts + kr], "
+     "ta_small[cc * ts + kr]);",
+     "              ta_big[cc * ts + kr] = __float_as_uint(v[u]);"),
+    ("      block_mma<CN>(acc,", "      block_fma<CN>(acc,"),
+    ("// ---- the kernel ", r"""template <int CN>
+__device__ __forceinline__ void block_fma(float (&acc)[MT][CN][4],
+                                          const float* b, const uint32_t* tb,
+                                          const uint32_t*, int ts, int gq,
+                                          int tq) {
+  const float* t = reinterpret_cast<const float*>(tb) - gq * ts - tq;
+#pragma unroll
+  for (int k = 0; k < NU_BLOCK; ++k) {
+    float a[MT][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        a[mt][h] = b[(16 * mt + gq + 8 * h) * BOX_W + k];
+#pragma unroll
+    for (int nt = 0; nt < CN; ++nt)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float x = t[(8 * nt + 2 * tq + c) * ts + k];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            acc[mt][nt][2 * h + c] = fmaf(a[mt][h], x, acc[mt][nt][2 * h + c]);
+      }
+  }
+}
+
+// ---- the kernel """),
+)
+# 4-byte stores straight from the accumulator fragments to device memory,
+# not through the ring slot
+_DIRECT_STORES = (
+    ("                slot_s[r * w + col] = acc[mt][nt][2 * h + c];",
+     "{\n"
+     "                float* gp = p.out + (row0 + r) * nemb + c0 + col;\n"
+     "                *gp = p.accumulate ? *gp + acc[mt][nt][2 * h + c]\n"
+     "                                   : acc[mt][nt][2 * h + c];\n"
+     "              }"),
+    ("      if (w == nemb) {", "      if (w < 0) {"),
+    ("        for (int e = tid; e < nr * w; e += THREADS) {",
+     "        for (int e = tid; e < 0; e += THREADS) {"),
+)
+#: variants timed at both shapes: the kernel as built and with its copies,
+#: its math or both taken out
+KERNEL_PARTS = {"as_built": (), "math_only": (_NO_COPY,),
+                "copies_only": (_NO_MATH,), "neither": (_NO_COPY, _NO_MATH)}
+#: the routes the design did not take, timed at the C40 window (their
+#: copies read only the columns of the window's blocks, none past nao)
+KERNEL_ROUTES = {"fp32_fma": _FP32_FMA,
+                 "fp32_fma_math_only": (*_FP32_FMA, _NO_COPY),
+                 "cp_async_gather": _GATHER,
+                 "bulk_copy_per_row": _BULK_PER_ROW,
+                 "direct_stores": _DIRECT_STORES}
+#: variants that compute the whole transform, held to the plain version
+COMPLETE = {"as_built", "fp32_fma", "cp_async_gather", "bulk_copy_per_row",
+            "direct_stores"}
+
+
+def _variant_libraries(sd, variants):
+    """Each variant's source (the kernel's with its edits applied), built
+    into build/ by concurrent ``nvcc`` runs and bound like the kernel."""
+    import ctypes
+    import subprocess
+
+    procs = {}
+    for name, edits in variants.items():
+        src = sd._SRC.read_text()
+        for old, new in edits:
+            if src.count(old) != 1:
+                raise RuntimeError(
+                    f"kernel_parts: {name}: source edit not found once")
+            src = src.replace(old, new)
+        cu = sd._BUILD_DIR / f"variant_{name}.cu"
+        cu.write_text(src)
+        so = cu.with_suffix(".so")
+        procs[name] = (so, subprocess.Popen(
+            [sd._nvcc(), *sd._NVCC_FLAGS, "-o", str(so), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (so, proc) in procs.items():
+        log, _ = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"kernel_parts: {name}: nvcc failed\n{log}")
+        lib = ctypes.CDLL(str(so))
+        fn = lib.screened_first_transform_f32
+        fn.argtypes = sd._library().screened_first_transform_f32.argtypes
+        fn.restype = ctypes.c_int
+        libs[name] = lib
+    return libs
+
+
+def profile_kernel_parts(mf, fobj, card):
+    from quemb_tpu_torch.ops import screened_df as sd
+
+    built = sd._library()
+    libs = _variant_libraries(sd, {k: e for k, e in {
+        **KERNEL_PARTS, **KERNEL_ROUTES}.items() if e})
+    libs["as_built"] = built
+    cases = {"octane_frag0": (_octane_case(sd, mf, fobj), KERNEL_PARTS),
+             "c40_8of18": (c40_case(sd, torch.device("cuda")),
+                           {**KERNEL_PARTS, **KERNEL_ROUTES})}
+    try:
+        for case, ((Bx, TAx, r), variants) in cases.items():
+            ref = sd.screened_first_transform_plain(
+                Bx, TAx, sd.block_rowmask(r, Bx.dtype, Bx.device))
+            scale = float(ref.abs().max())
+            out, rel_err = {}, {}
+            for k in variants:
+                sd._LIB = libs[k]
+                got = sd.screened_first_transform(Bx, TAx, r)
+                if k in COMPLETE:
+                    rel_err[k] = float((got - ref).abs().max()) / scale
+                del got
+                out[k] = 1e3 * float(np.median([device_ms(
+                    lambda: sd.screened_first_transform(Bx, TAx, r)
+                ) for _ in range(N_PARTS_TIMINGS)]))
+            print(json.dumps({"part": "kernel_parts", "case": case,
+                              "launch_blocks": [int(p.size) for p in
+                                                sd.plan_launches(
+                                                    TAx.shape[1],
+                                                    sd.kept_blocks(r))],
+                              "event_us_per_call": out,
+                              "max_rel_err": rel_err, "card": card}),
+                  flush=True)
+            del ref
+    finally:
+        sd._LIB = built
+    del cases
+    torch.cuda.empty_cache()
 
 
 def profile_objective(mf, fobj, card, trace):
@@ -232,6 +481,7 @@ def main():
     fobj = qt.fragmentate(mf.mol, n_BE=2, frag_type="chemgen",
                           print_frags=False)
     profile_kernel(mf, fobj, card)
+    profile_kernel_parts(mf, fobj, card)
     profile_objective(mf, fobj, card, args.trace)
 
 

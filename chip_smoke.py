@@ -20,7 +20,13 @@ one line, and any failure raises (non-zero exit, no ``ok`` line):
    auxbasis="cholesky")`` under ``QUEMB_TPU_CCSD_F32_ONLY=1``, which must
    launch the kernel once per fragment, then a one-shot CCSD;
 4. the f64 route ``BE(mf, fobj)`` and its one-shot CCSD;
-5. three objective evaluations (``be_func``) at a seeded potential.
+5. three objective evaluations (``be_func``) at a seeded potential;
+6. density matching on the f64 route at full width: the analytic HF
+   Jacobian (``be.get_be_error_jacobian("HF")``), then
+   ``be.optimize(solver="CCSD")``, which must reach octane's reference
+   E_tot and E_corr within 1e-6 Ha.  The matching loop solves fragments
+   from ERIs that are already built, so it launches the kernel 0 times;
+   the kernel's count is that of phase 3.
 
 The last lines are the kernel report (JSON), the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -42,6 +48,11 @@ XYZ = os.path.join(HERE, "tests", "data", "xyz", "octane.xyz")
 #: one-shot octane BE2-CCSD correlation energy of the JAX package
 #: (BENCH_r05.json ``oneshot_ecorr``, CCSD tolerance 1e-6)
 ECORR_REF = -0.5499458109
+#: matched octane BE2-CCSD energies of the reference implementation
+#: (BASELINE.md; tests/test_molbe_octane.py holds the JAX package to them)
+ETOT_MATCHED_REF = -310.3347211309688
+ECORR_MATCHED_REF = -0.5499514850769742
+MATCHED_TOL = 1e-6  # Ha, on both
 #: kernel against plain version, relative to max|plain|: the kernel sums
 #: 3xTF32 products (FP32 to about 1e-6 relative), the plain version FP32
 #: products, in different orders
@@ -334,6 +345,67 @@ def main():
             raise AssertionError("objective energy is not finite")
     phase(5, first_eeval_s=walls[0], warm_eeval_s=walls[1],
           warm_error_only_s=walls[2], error_norm=float(ret[0]), card=card)
+
+    # ---- 6. density matching on the f64 route, from zero potential
+    from quemb_tpu_torch.matching import beopt
+
+    for fr in be.fragments:  # phase 5 left its seeded potential in heff
+        fr.update_heff(be.pot)
+    sd.LAUNCHES = 0
+    t0 = time.perf_counter()
+    J0 = be.get_be_error_jacobian("HF")
+    torch.cuda.synchronize()
+    jac_s = time.perf_counter() - t0
+    if not (J0.shape == (len(be.pot),) * 2 and np.all(np.isfinite(J0))):
+        raise AssertionError(
+            f"Jacobian {J0.shape} for {len(be.pot)} potentials, or not"
+            " finite"
+        )
+    # count what optimize does: objective evaluations with their error
+    # norms, and quasi-Newton steps
+    err_norms, qn_steps = [], []
+    be_func_inner, next_step_inner = beopt.be_func, beopt.FrankQN.next_step
+
+    def counted_be_func(*args, **kwargs):
+        ret = be_func_inner(*args, **kwargs)
+        err_norms.append(float(ret[0]))
+        return ret
+
+    def counted_next_step(self, it, **kwargs):
+        qn_steps.append(it)
+        return next_step_inner(self, it, **kwargs)
+
+    beopt.be_func, beopt.FrankQN.next_step = counted_be_func, \
+        counted_next_step
+    try:
+        t0 = time.perf_counter()
+        be.optimize(solver="CCSD", only_chem=False)
+        torch.cuda.synchronize()
+        optimize_s = time.perf_counter() - t0
+    finally:
+        beopt.be_func, beopt.FrankQN.next_step = be_func_inner, \
+            next_step_inner
+    ecorr_m = be.ebe_tot - be.ebe_hf
+    phase(6, jacobian_s=jac_s, jacobian_shape=list(J0.shape),
+          evaluations=len(err_norms), qn_iterations=len(qn_steps),
+          first_error_norm=err_norms[0], final_error_norm=err_norms[-1],
+          optimize_s=optimize_s, etot=be.ebe_tot,
+          etot_dev=be.ebe_tot - ETOT_MATCHED_REF, ecorr=ecorr_m,
+          ecorr_dev=ecorr_m - ECORR_MATCHED_REF,
+          ccsd_conv_tol=os.environ["QUEMB_TPU_CCSD_CONV_TOL"],
+          kernel_launches=sd.LAUNCHES, card=card)
+    if not err_norms[-1] < 1e-6:
+        raise AssertionError(
+            f"matching stopped at error norm {err_norms[-1]:.3e} >= 1e-6"
+        )
+    if not abs(be.ebe_tot - ETOT_MATCHED_REF) < MATCHED_TOL:
+        raise AssertionError(
+            f"matched E_tot {be.ebe_tot:.10f}: |dev| >= {MATCHED_TOL:g} Ha"
+        )
+    if not abs(ecorr_m - ECORR_MATCHED_REF) < MATCHED_TOL:
+        raise AssertionError(
+            f"matched E_corr {ecorr_m:.10f}: |dev| >= {MATCHED_TOL:g} Ha"
+        )
 
     main = timed["octane_frag0"]
     print(json.dumps({"kernels": [{

@@ -5,8 +5,10 @@ JAX counterpart: ``quemb_tpu/api.py``.  Mirrors the reference molbe
 molbe/fragment.py:22) for the slice this port carries: chemgen
 fragmentation, Lowdin localization, Schmidt embedding, the fragment ERI
 transform (``"in-core"``, or ``"sparse-DF"`` under the f32 tier, which
-runs the screened-DF CUDA kernel), batched fragment initialization and the
-one-shot CCSD solve.  Density matching (``optimize``) is ROADMAP A7.
+runs the screened-DF CUDA kernel), batched fragment initialization, the
+one-shot solve and density matching (``optimize``: analytic HF/MP2/CCSD or
+numerical Jacobian, quasi-Newton loop) with the CCSD, MP2 and FCI bucket
+solvers.
 
 Device work runs on an explicit ``torch.device``: ``BE(..., device=...)``
 defaults to CUDA and raises when no card is present; the CPU is used only
@@ -19,6 +21,7 @@ import logging
 import os
 import time
 import warnings
+from typing import Literal
 
 import numpy as np
 import torch
@@ -30,6 +33,8 @@ from quemb_tpu_torch.embed.fragment_scf import rhf_orthonormal
 from quemb_tpu_torch.fragment.chemgen import ChemGenArgs, chemgen
 from quemb_tpu_torch.fragment.frag_part import FragPart
 from quemb_tpu_torch.lo.lowdin import lowdin_orth
+from quemb_tpu_torch.matching.beopt import BEOPT
+from quemb_tpu_torch.matching.cphf import get_be_error_jacobian
 from quemb_tpu_torch.solvers.dispatch import be_func
 
 logger = logging.getLogger(__name__)
@@ -158,6 +163,7 @@ class BE:
         self.hf_etot = mf.e_tot
         self.ebe_hf = 0.0
         self.ebe_tot = 0.0
+        self.E_core = 0.0  # no frozen core (ROADMAP A10)
 
         self.localize()
         self.fragments: list[Fragment] = []
@@ -339,14 +345,102 @@ class BE:
         return E_hf
 
     # -------------------------------------------------------------- oneshot
-    def oneshot(self, solver: str = "CCSD") -> None:
+    def oneshot(
+        self, solver: str = "CCSD", use_cumulant: bool = True
+    ) -> None:
         """One objective evaluation at zero matching potential; sets
-        ``ebe_tot`` from the cumulant correlation energy."""
+        ``ebe_tot``."""
         rets = be_func(
-            None, self.fragments, self.Nocc, solver, eeval=True,
+            None,
+            self.fragments,
+            self.Nocc,
+            solver,
+            eeval=True,
+            use_cumulant=use_cumulant,
             return_vec=False,
         )
         logger.info(f"One-shot BE, solver={solver}: Ecorr={rets[0]:.10f}")
-        self.ebe_tot = rets[0] + self.ebe_hf
+        if use_cumulant:
+            self.ebe_tot = rets[0] + self.ebe_hf
+        else:
+            # Non-cumulant: rets[0] is already the full electronic energy
+            # of the matched regions, so only nuclear + frozen-core terms
+            # are added
+            self.ebe_tot = rets[0] + self.enuc + self.E_core
         print(f"One-shot BE ({solver}): E_corr = {rets[0]:.10f} Ha, "
               f"E_tot = {self.ebe_tot:.10f} Ha")
+
+    # ------------------------------------------------------------- optimize
+    def optimize(
+        self,
+        solver: str = "CCSD",
+        method: str = "QN",
+        only_chem: bool = False,
+        use_cumulant: bool = True,
+        conv_tol: float = 1.0e-6,
+        relax_density: bool = False,
+        jac_solver: Literal["HF", "MP2", "CCSD", "Numerical"] = "HF",
+        max_iter: int = 500,
+        trust_region: bool = False,
+    ) -> None:
+        """Density matching: quasi-Newton root search for the matching
+        potential (or, with ``only_chem``, the chemical potential alone)
+        from the Jacobian of ``jac_solver``; sets ``ebe_tot``.  The
+        fragment solves and the responses run on ``self.device``."""
+        if not only_chem:
+            pot = self.pot
+            if self.fobj.n_BE == 1:
+                raise ValueError(
+                    "BE1 only works with chemical potential optimization. "
+                    "Set only_chem=True"
+                )
+            if (
+                not self.fobj.iao_valence_basis
+                and self.fobj.n_BE >= 3
+                and not self.fobj.all_centers_are_origins()
+            ):
+                raise ValueError(
+                    "BE3+ with centers that are not origins is not supported "
+                    "for density matching; use swallow_replace=True."
+                )
+        else:
+            pot = [0.0]
+
+        be_ = BEOPT(
+            pot,
+            self.fragments,
+            self.Nocc,
+            self.enuc,
+            solver=solver,
+            only_chem=only_chem,
+            use_cumulant=use_cumulant,
+            max_space=max_iter,
+            conv_tol=conv_tol,
+            relax_density=relax_density,
+            ebe_hf=self.ebe_hf,
+        )
+
+        if jac_solver == "Numerical":
+            from quemb_tpu_torch.matching.numerical_jac import (  # noqa: PLC0415
+                compute_numerical_jacobian,
+            )
+
+            J0 = compute_numerical_jacobian(self, solver, only_chem)
+        else:
+            J0 = get_be_error_jacobian(self.fragments, jac_solver)
+            if only_chem:
+                J0 = J0[-1:, -1:]
+
+        be_.optimize(method, J0=J0, trust_region=trust_region)
+
+        if use_cumulant:
+            self.ebe_tot = be_.Ebe[0] + self.ebe_hf
+        else:
+            self.ebe_tot = be_.Ebe[0] + self.enuc + self.E_core
+        print(
+            f"BE optimize ({solver}): E_corr = {be_.Ebe[0]:.10f} Ha, "
+            f"E_tot = {self.ebe_tot:.10f} Ha"
+        )
+
+    def get_be_error_jacobian(self, jac_solver: str = "HF"):
+        return get_be_error_jacobian(self.fragments, jac_solver)

@@ -28,3 +28,18 @@ def incore_transform_batched(
     t = torch.einsum("fiqrs,fqj->fijrs", t, TA_b)
     t = torch.einsum("fijrs,frk->fijks", t, TA_b)
     return torch.einsum("fijks,fsl->fijkl", t, TA_b)
+
+
+def batched_mo_eri(eri_b: torch.Tensor, C_b: torch.Tensor) -> torch.Tensor:
+    """Four sequential single-index transforms of [nf, n]^4 tensors by
+    C_b [nf, n, k] (each step contracts the last axis and rolls it to the
+    front, behind the batch axis)."""
+    out = eri_b
+    nf = eri_b.shape[0]
+    for _ in range(4):
+        shp = out.shape[:-1]
+        out = (out.reshape(nf, -1, out.shape[-1]) @ C_b).reshape(
+            shp + (C_b.shape[-1],)
+        )
+        out = out.movedim(-1, 1)
+    return out

@@ -1,17 +1,22 @@
 """Per-objective-evaluation fragment solve pass + error vector.
 
 JAX counterpart: ``quemb_tpu/solvers/dispatch.py``.  Fragments are grouped
-into merged, zero-padded buckets (:func:`form_merge_classes`) and each
-bucket runs the fused CCSD objective (:func:`_fused_objective_bucket`):
-batched fragment SCF -> MO-ERI transform -> closed-shell CCSD -> unrelaxed
-RDMs -> embedding-basis 1-RDM -> cumulant energy rows, with the fragment
-axis as a leading batch dimension.  The JAX module's other solvers, its
-staged path and its large-fragment path (``_solve_bucket_large``) are
-ROADMAP A9 and raise.  The fragment axis is not sharded over devices.
+into buckets (:func:`form_merge_classes`: merged and zero-padded for CCSD
+and MP2, one bucket per true shape for FCI) and each bucket runs
+:func:`_solve_bucket_batched` with the fragment axis as a leading batch
+dimension: batched fragment SCF -> MO-ERI transform -> the solver (closed-
+shell CCSD, MP2, or FCI on the host) -> RDMs -> embedding-basis 1-RDM ->
+cumulant or non-cumulant energy rows.  The JAX module keeps a fused and a
+staged form of this pass because one is a single XLA program; eager torch
+has one form.  Relaxed CCSD densities, the SCI/DMRG/SHCI solvers, the
+spin-orbital CCSD switch and the large-fragment path
+(``_solve_bucket_large``) are ROADMAP A9 and raise.  The fragment axis is
+not sharded over devices.
 """
 
 from __future__ import annotations
 
+import os
 import warnings
 
 import numpy as np
@@ -19,7 +24,12 @@ import torch
 
 from quemb_tpu_torch.embed.fragment import Fragment
 from quemb_tpu_torch.embed.fragment_scf import rhf_orthonormal
+from quemb_tpu_torch.ops.eri_transform import \
+    batched_mo_eri as _batched_mo_eri
 from quemb_tpu_torch.solvers.ccsd import _default_conv_tol, _f32_only
+from quemb_tpu_torch.solvers.fci import remove_mf_part, solve_fci
+from quemb_tpu_torch.solvers.mp2 import add_mean_field_rdm2, \
+    make_rdm1_mp2, make_rdm2_mp2, mp2_amplitudes
 from quemb_tpu_torch.solvers.rccsd import _rccsd_from_mo_batched
 
 #: largest padded embedding dimension of the batched bucket path; larger
@@ -27,19 +37,25 @@ from quemb_tpu_torch.solvers.rccsd import _rccsd_from_mo_batched
 _NEMB_BATCHED_MAX = 48
 
 
-def _batched_mo_eri(eri_b, C_b):
-    """Four sequential single-index transforms of [nf, n]^4 tensors by
-    C_b [nf, n, k] (each step contracts the last axis and rolls it to the
-    front, behind the batch axis)."""
-    out = eri_b
-    nf = eri_b.shape[0]
-    for _ in range(4):
-        shp = out.shape[:-1]
-        out = (out.reshape(nf, -1, out.shape[-1]) @ C_b).reshape(
-            shp + (C_b.shape[-1],)
-        )
-        out = out.movedim(-1, 1)
-    return out
+def _mo_transform(C_b, h_b, eri_b):
+    """One-body and two-body Hamiltonians of a bucket in its fragment-SCF
+    orbitals, computed on the device and brought to the host (for the CI
+    solver): (h_mo [nf, n, n], eri_mo [nf, n, n, n, n]) as numpy."""
+    h_mo = C_b.transpose(1, 2) @ h_b @ C_b
+    return h_mo.cpu().numpy(), _batched_mo_eri(eri_b, C_b).cpu().numpy()
+
+
+def run_fragment_scf(fr: Fragment, heff=None):
+    """Fragment RHF on (fock + heff, eri) from the initial density guess,
+    on the device of ``fr.eri``; returns tensors (mo_energy [n], mo_coeff
+    [n, n]) there.  One fragment at its true shape: no pad orbitals."""
+    eri = fr.eri
+    h, dm0 = (
+        torch.as_tensor(a, dtype=eri.dtype, device=eri.device)[None]
+        for a in (fr.fock + (fr.heff if heff is None else heff), fr.dm0)
+    )
+    e, C, _, _ = rhf_orthonormal(h, eri[None], fr.nsocc, dm0)
+    return e[0], C[0]
 
 
 def _batched_energy_rows(mo_b, h1_b, veff0_b, eri_b, rdm1_b, rdm2_b,
@@ -55,6 +71,12 @@ def _batched_energy_rows(mo_b, h1_b, veff0_b, eri_b, rdm1_b, rdm2_b,
     delta = 2.0 * (rdm1_emb - hf_1rdm)
     e1 = (h1_b * delta).sum(-1)
     ec = (veff0_b * delta).sum(-1)
+    return _center_rows(e1, ec, moT, eri_b, rdm2_b, center_w_b)
+
+
+def _center_rows(e1, ec, moT, eri_b, rdm2_b, center_w_b):
+    """The two-body rows (the 2-RDM back in the embedding basis against
+    the ERI), and all three kinds of row summed over the center rows."""
     rdm2_emb = _batched_mo_eri(0.5 * rdm2_b, moT)
     e2 = (rdm2_emb * eri_b).sum((-3, -2, -1))
     return (
@@ -64,14 +86,25 @@ def _batched_energy_rows(mo_b, h1_b, veff0_b, eri_b, rdm1_b, rdm2_b,
     )
 
 
+def _batched_energy_rows_nc(mo_b, h1_b, veff_b, eri_b, rdm1_b, rdm2_b,
+                            center_w_b):
+    """Non-cumulant fragment energies for a bucket (ref helper.py:295):
+    full 1-RDM against h1/veff(env), full 2-RDM against the ERI."""
+    moT = mo_b.transpose(1, 2)
+    rdm1_emb = mo_b @ (0.5 * rdm1_b) @ moT
+    e1 = 2.0 * (h1_b * rdm1_emb).sum(-1)
+    ec = (veff_b * rdm1_emb).sum(-1)
+    return _center_rows(e1, ec, moT, eri_b, rdm2_b, center_w_b)
+
+
 def _batched_rdm1_emb(C_b, rdm1_b):
     return (C_b @ rdm1_b @ C_b.transpose(1, 2)) * 0.5
 
 
-def _rdm12_urlx_batched(t1_b, t2_b):
-    """Batched unrelaxed CCSD 1- and 2-RDMs in the cumulant form (broadcast
-    form of the reference's ccsd_rdm.py:make_rdm2_urlx, without the
-    mean-field 2-RDM part)."""
+def _rdm12_urlx_batched(t1_b, t2_b, with_dm1: bool = False):
+    """Batched unrelaxed CCSD 1- and 2-RDMs (broadcast form of the
+    reference's ccsd_rdm.py:make_rdm2_urlx): the cumulant 2-RDM, or with
+    ``with_dm1`` the full one, mean-field part included."""
     nf, nocc, nvir = t1_b.shape
     nmo = nocc + nvir
     o, v = slice(0, nocc), slice(nocc, nmo)
@@ -87,40 +120,10 @@ def _rdm12_urlx_batched(t1_b, t2_b):
     dm1[:, o, v] = t1_b
     dm1[:, v, o] = t1_b.transpose(1, 2)
     idx = torch.arange(nocc, device=t1_b.device)
+    if with_dm1:
+        dm2 = add_mean_field_rdm2(dm2, dm1, nocc)  # dm1: correlation part
     dm1[:, idx, idx] += 2.0
     return dm1, dm2
-
-
-def _fused_objective_bucket(
-    fock_b, heff_b, eri_b, dm0_b, h1_b, veff0_b, occ_mask_b, center_w_b,
-    nsocc: int, f32_only: bool, eeval: bool,
-):
-    """A whole CCSD objective evaluation for one bucket.
-
-    Fragment SCF -> MO-ERI transform -> RCCSD -> urlx RDMs ->
-    embedding-basis 1-RDM -> cumulant energy rows.  With ``eeval=False``
-    (error-only evaluations) the 2-RDM and the energy rows are skipped.
-    """
-    h_b = fock_b + heff_b
-    moe_b, C_b, _, _ = rhf_orthonormal(h_b, eri_b, nsocc, dm0_b)
-    eri_mo_b = _batched_mo_eri(eri_b, C_b)
-    t1_b, t2_b, _, delta = _rccsd_from_mo_batched(
-        eri_mo_b, moe_b, nsocc, f32_only=f32_only
-    )
-    rdm1_b, rdm2_b = _rdm12_urlx_batched(t1_b, t2_b)
-    rdm1_emb_b = _batched_rdm1_emb(C_b, rdm1_b)
-    if eeval:
-        e1, e2, ec = _batched_energy_rows(
-            C_b, h1_b, veff0_b, eri_b, rdm1_b, rdm2_b, occ_mask_b,
-            center_w_b,
-        )
-    else:
-        e1 = e2 = ec = fock_b.new_zeros(fock_b.shape[0])
-        rdm2_b = None
-    return (
-        e1, e2, ec, rdm1_emb_b, rdm1_b, rdm2_b, moe_b, C_b, t1_b, t2_b,
-        delta,
-    )
 
 
 # Orbital energy magnitude assigned to bucket-merge padding dimensions:
@@ -161,7 +164,7 @@ def _pad_frag_op(a, p_occ: int, p_vir: int, diag_occ: float = 0.0,
 def _bucket_dev(frs: list[Fragment], pads: tuple[tuple[int, int], ...]):
     """Stacked, padded device operands of a merged bucket.
 
-    fock/eri/dm0/h1/veff0 are fixed after BE construction; only heff
+    fock/eri/dm0/h1/veff0/veff are fixed after BE construction; only heff
     changes between objective evaluations, so the stacks are built once
     and kept on the bucket's first fragment, keyed by the fragments'
     tokens and pads.  Replacing ``fr.eri`` invalidates the entry.
@@ -186,85 +189,165 @@ def _bucket_dev(frs: list[Fragment], pads: tuple[tuple[int, int], ...]):
         dm0=stack("dm0", diag_occ=2.0),
         h1=stack("h1"),
         veff0=stack("veff0"),
+        veff=stack("veff"),
     )
     frs[0]._bucket_cache = dict(key=key, eri=frs[0].eri, dev=out)
     return out
 
 
-def _solve_bucket_batched(frs, solver, eeval, use_cumulant, relax_density,
-                          pads):
-    """Solve one merged bucket through the fused objective.
+_UNPORTED_SOLVERS = ("SCI", "DMRG", "SHCI", "HCI")
 
-    Only batched closed-shell CCSD with cumulant energies (the matching
-    path) is ported: the JAX module's ``_solve_bucket_batched`` and its
-    ``_maybe_fused_objective`` in one.  Returns the bucket's summed
-    ``[e1, e2, ec]`` with ``eeval``, else None; per-fragment results are
-    written back onto the fragments.
+
+def _solve_bucket_batched(frs, solver, eeval, use_cumulant, relax_density,
+                          pads=None):
+    """Solve a bucket of same-shaped fragments as batched device work.
+
+    ``pads`` (from the be_func bucket merge) zero-pads each fragment's
+    occupied/virtual embedding dimensions up to a shared (nsocc, nemb)
+    target so near-same-shaped buckets run as ONE batch -- exactly (see
+    _PAD_SHIFT); per-fragment results are sliced back to true shapes
+    before they are stored.  Solvers: ``"CCSD"`` and ``"MP2"`` on the
+    device, ``"FCI"`` with the SCF and the MO transform on the device and
+    the CI on the host; cumulant or non-cumulant energies.  Returns the
+    bucket's summed ``[e1, e2, ec]`` with ``eeval``, else None;
+    per-fragment results are written back onto the fragments.
     """
-    if solver != "CCSD" or relax_density or not use_cumulant:
+    if relax_density:
         raise NotImplementedError(
-            f"solver={solver!r}, relax_density={relax_density}, "
-            f"use_cumulant={use_cumulant}: only the fused cumulant CCSD"
-            " path is ported; the rest is ROADMAP A9"
+            "relax_density=True (solvers/ccsd_relaxed.py) is ROADMAP A9"
+        )
+    if solver in _UNPORTED_SOLVERS:
+        raise NotImplementedError(
+            f"solver={solver!r}: CCSD, MP2 and FCI are ported; SCI, DMRG"
+            " and SHCI/HCI are ROADMAP A9"
+        )
+    if solver not in ("CCSD", "MP2", "FCI"):
+        raise NotImplementedError(f"Solver {solver} not implemented")
+    if solver == "CCSD" and os.environ.get(
+        "QUEMB_TPU_CCSD_SPINORB", ""
+    ) in ("1", "true", "yes"):
+        raise NotImplementedError(
+            "QUEMB_TPU_CCSD_SPINORB: the spin-orbital CCSD kernel is"
+            " ROADMAP A9; unset it for the closed-shell kernel"
+        )
+    if pads is None:
+        pads = ((0, 0),) * len(frs)
+    if solver == "FCI" and any(po or pv for po, pv in pads):
+        raise ValueError(
+            "bucket-merge padding supports batched CCSD/MP2 only"
         )
     nsocc = frs[0].nsocc + pads[0][0]
     nemb = frs[0].nao + pads[0][0] + pads[0][1]
     if nemb > _NEMB_BATCHED_MAX:
         raise NotImplementedError(
             f"nemb={nemb} > {_NEMB_BATCHED_MAX}: the fragment-at-a-time"
-            " large-bucket path is ROADMAP A9"
+            " large-bucket path (_solve_bucket_large) is ROADMAP A9"
         )
     dev = _bucket_dev(frs, pads)
     device = dev["fock"].device
     heff_b = torch.as_tensor(np.stack([
         _pad_frag_op(fr.heff, po, pv) for fr, (po, pv) in zip(frs, pads)
     ]), device=device)
-    occ_mask = np.zeros((len(frs), nemb))
-    occ_mask[:, :nsocc] = 1.0
-    center_w = np.zeros((len(frs), nemb))
-    for i, fr in enumerate(frs):
-        w, idx = fr.weight_and_relAO_per_center
-        center_w[i, list(idx)] = w
-    f32_only = _f32_only()
-    (e1, e2, ec, rdm1_emb_b, rdm1_b, rdm2_b, moe_b, C_b, t1_b, t2_b,
-     delta) = _fused_objective_bucket(
-        dev["fock"], heff_b, dev["eri"], dev["dm0"], dev["h1"],
-        dev["veff0"], torch.as_tensor(occ_mask, device=device),
-        torch.as_tensor(center_w, device=device),
-        nsocc=nsocc, f32_only=f32_only, eeval=bool(eeval),
-    )
-    delta_h = delta.cpu().numpy()
-    rdm1_emb_host = rdm1_emb_b.cpu().numpy()
+    h_b = dev["fock"] + heff_b
+    eri_b = dev["eri"]
+    moe_b, C_b, _, _ = rhf_orthonormal(h_b, eri_b, nsocc, dev["dm0"])
+
+    t1_b = t2_b = None
+    if solver == "CCSD":
+        f32_only = _f32_only()
+        eri_mo_b = _batched_mo_eri(eri_b, C_b)
+        t1_b, t2_b, _, delta = _rccsd_from_mo_batched(
+            eri_mo_b, moe_b, nsocc, f32_only=f32_only
+        )
+        rdm1_b, rdm2_b = _rdm12_urlx_batched(
+            t1_b, t2_b, with_dm1=not use_cumulant
+        )
+        delta_max = float(delta.max())
+        if not f32_only and delta_max > 10 * _default_conv_tol():
+            warnings.warn(
+                f"CCSD bucket not fully converged: "
+                f"max|dt| = {delta_max:.2e}"
+            )
+    elif solver == "MP2":
+        t2_mp, _ = mp2_amplitudes(_batched_mo_eri(eri_b, C_b), moe_b, nsocc)
+        rdm1_b = make_rdm1_mp2(t2_mp, nemb)
+        rdm2_b = make_rdm2_mp2(t2_mp, nemb) if eeval else None
+    else:
+        # FCI: the Hamiltonians go down to the host, the RDMs come back
+        rdm1_l, rdm2_l = [], []
+        for h_mo, eri_mo in zip(*_mo_transform(C_b, h_b, eri_b)):
+            _, rdm1, rdm2 = solve_fci(h_mo, eri_mo, nsocc)
+            if eeval and use_cumulant:
+                rdm2 = remove_mf_part(rdm1, rdm2, nsocc)
+            rdm1_l.append(rdm1)
+            rdm2_l.append(rdm2)
+        rdm1_b = torch.as_tensor(np.stack(rdm1_l), device=device)
+        rdm2_b = torch.as_tensor(np.stack(rdm2_l), device=device)
+
+    # correlated 1-RDM in the embedding basis (for the error vector); all
+    # big operands stay on the device, only per-fragment scalars and
+    # [nemb, nemb] matrices come back to the host
+    rdm1_emb_host = _batched_rdm1_emb(C_b, rdm1_b).cpu().numpy()
     C_host = C_b.cpu().numpy()
     moe_host = moe_b.cpu().numpy()
-    if not f32_only and float(np.max(delta_h)) > 10 * _default_conv_tol():
-        warnings.warn(
-            f"CCSD bucket not fully converged: "
-            f"max|dt| = {float(np.max(delta_h)):.2e}"
-        )
     for k, fr in enumerate(frs):
+        # pad orbitals are exactly decoupled: occupied pads (-_PAD_SHIFT)
+        # sort first, virtual pads (+_PAD_SHIFT) last, so the real MOs are
+        # columns [po, po + n) and the real embedding rows are [0, n)
         n = fr.nao
         po = pads[k][0]
         sl = slice(po, po + n)
-        nv_k = n - fr.nsocc
-        fr.mo_coeffs = C_host[k][:n, po : po + n]
-        fr.mo_energy = moe_host[k][po : po + n]
+        fr.mo_coeffs = C_host[k][:n, sl]
+        fr.mo_energy = moe_host[k][sl]
         fr._rdm1 = rdm1_emb_host[k][:n, :n]
         fr.rdm1__ = rdm1_b[k][sl, sl]  # device
-        fr.t1 = t1_b[k][po:, :nv_k]  # device
-        fr.t2 = t2_b[k][po:, po:, :nv_k, :nv_k]
+        if t1_b is not None:
+            nv_k = n - fr.nsocc
+            fr.t1 = t1_b[k][po:, :nv_k]  # device
+            fr.t2 = t2_b[k][po:, po:, :nv_k, :nv_k]
         if eeval:
             fr.rdm2__ = rdm2_b[k][sl, sl, sl, sl]  # device
     if not eeval:
         return None
+
+    center_w = np.zeros((len(frs), nemb))
+    for i, fr in enumerate(frs):
+        w, idx = fr.weight_and_relAO_per_center
+        center_w[i, list(idx)] = w
+    center_w_b = torch.as_tensor(center_w, device=device)
+    if use_cumulant:
+        occ_mask = np.zeros((len(frs), nemb))
+        occ_mask[:, :nsocc] = 1.0
+        e1, e2, ec = _batched_energy_rows(
+            C_b, dev["h1"], dev["veff0"], eri_b, rdm1_b, rdm2_b,
+            torch.as_tensor(occ_mask, device=device), center_w_b,
+        )
+    else:
+        e1, e2, ec = _batched_energy_rows_nc(
+            C_b, dev["h1"], dev["veff"], eri_b, rdm1_b, rdm2_b, center_w_b,
+        )
     e1h, e2h, ech = (x.cpu().numpy() for x in (e1, e2, ec))
     for fr, a, b, c in zip(frs, e1h, e2h, ech):
         fr.ebe = float(a + b + c)
     return [float(e1h.sum()), float(e2h.sum()), float(ech.sum())]
 
 
+def solve_one_fragment(
+    fr: Fragment,
+    solver: str,
+    eeval: bool,
+    use_cumulant: bool = True,
+    relax_density: bool = False,
+):
+    """Single-fragment solve (kept for probing/tests); updates fr in place."""
+    return _solve_bucket_batched([fr], solver, eeval, use_cumulant,
+                                 relax_density)
+
+
 def form_merge_classes(
     fragments: list[Fragment],
+    solver: str = "CCSD",
+    relax_density: bool = False,
 ) -> list[list[tuple[Fragment, tuple[int, int]]]]:
     """Group fragments into merged padded buckets (the production plan).
 
@@ -272,13 +355,16 @@ def form_merge_classes(
     embedding dimensions to a shared (nsocc, nvir) target (exact -- see
     ``_PAD_SHIFT``): octane BE2's (41,21)x4 + (40,22)x2 buckets become ONE
     (22,20) bucket.  Each class is a list of ``(fragment, (pad_occ,
-    pad_vir))`` pairs.  The JAX function's unmerged plan (for its other
-    solvers and ``QUEMB_TPU_MERGE_BUCKETS=0``) is not ported: the fused
-    CCSD path, the only one here, always merges.
+    pad_vir))`` pairs.  Solvers other than CCSD and MP2 (and relaxed
+    densities) get the unmerged plan, one class per true (nao, nsocc)
+    shape with no pads.  The JAX function's ``QUEMB_TPU_MERGE_BUCKETS``
+    switch is not carried: CCSD and MP2 always merge.
     """
     buckets: dict[tuple[int, int], list[Fragment]] = {}
     for fr in fragments:
         buckets.setdefault((fr.nao, fr.nsocc), []).append(fr)
+    if solver not in ("CCSD", "MP2") or relax_density:
+        return [[(fr, (0, 0)) for fr in frs] for frs in buckets.values()]
 
     # greedy: largest-nao key seeds a class; a key joins if the class
     # target it induces keeps every member's padding <= 25% and the
@@ -329,7 +415,7 @@ def be_func(
         if pot is not None:
             fr.update_heff(pot, only_chem=only_chem)
 
-    merge_classes = form_merge_classes(fragments)
+    merge_classes = form_merge_classes(fragments, solver, relax_density)
 
     total_e = [0.0, 0.0, 0.0]
     for pairs in merge_classes:

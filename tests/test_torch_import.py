@@ -11,11 +11,17 @@ MODULES = (
     "quemb_tpu_torch",
     "quemb_tpu_torch.api",
     "quemb_tpu_torch.chem.scf",
+    "quemb_tpu_torch.matching.beopt",
+    "quemb_tpu_torch.matching.cphf",
+    "quemb_tpu_torch.matching.numerical_jac",
+    "quemb_tpu_torch.matching.optqn",
     "quemb_tpu_torch.ops.df",
     "quemb_tpu_torch.ops.eri_transform",
     "quemb_tpu_torch.ops.screened_df",
     "quemb_tpu_torch.ops.sparse_df",
     "quemb_tpu_torch.solvers.dispatch",
+    "quemb_tpu_torch.solvers.fci",
+    "quemb_tpu_torch.solvers.mp2",
 )
 
 

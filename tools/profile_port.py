@@ -1,8 +1,9 @@
 """Profile the PyTorch/CUDA port at octane on one NVIDIA card.
 
-    python3 tools/profile_port.py [--trace PATH]
+    python3 tools/profile_port.py [--parts NAME[,NAME...]] [--trace PATH]
 
-Three parts, printed as JSON lines (plus the profiler tables):
+Four parts (all of them unless ``--parts`` names some), printed as JSON
+lines (plus the profiler tables):
 
 - ``kernel``: the screened first transform, one line a case: octane
   fragment 0 (the octane Cholesky factor, naux 777, nao 58) and the
@@ -27,10 +28,22 @@ Three parts, printed as JSON lines (plus the profiler tables):
 - ``objective``: the f64 route ``BE(mf, fobj)`` at CCSD tolerance 1e-6,
   ``be_func`` with ``eeval=True`` at the seeded potential of
   ``chip_smoke.py`` (two warm-up evaluations first): the unprofiled wall,
-  the stages of the fused objective each timed to a
+  the stages of the objective each timed to a
   ``torch.cuda.synchronize()`` with their iteration counts, and one
   evaluation under ``torch.profiler`` (device events and their summed
-  time, the top operators and the top device kernels).
+  time, the top operators and the top device kernels);
+- ``matching``: where a matching run's time goes, on the same route.  The
+  analytic Jacobian by ``jac_solver`` (HF, MP2, CCSD): its wall, and within
+  it the fragment SCF, the CPHF solves and (MP2, CCSD) the rest of the
+  response, each timed to a ``torch.cuda.synchronize()``.  Then
+  ``be.optimize(solver="CCSD")`` from zero potential, after a one-shot
+  solve: its wall, the Jacobian's, every objective evaluation's wall and
+  error norm, the wall inside the fragment SCF and inside the CCSD
+  iteration of each evaluation (each call timed between two
+  synchronisations, which the plain run does not have), with the matched
+  energies and their distance from the reference's.  Three such runs: at
+  CCSD tolerance 1e-6, at 1e-8, and on the f32 tier (sparse-DF with the
+  screened-DF kernel, f32 amplitudes) with at most 10 quasi-Newton steps.
 
 Device time is summed over the profiler's device events (kernels, copies,
 memsets) without its own buffer events; an operator's row in
@@ -53,8 +66,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from chip_smoke import (  # noqa: E402
-    FIXTURE, XYZ, c40_case, call_bound, card_line, device_ms,
-    fragment_bases,
+    ECORR_MATCHED_REF, ETOT_MATCHED_REF, FIXTURE, XYZ, c40_case, call_bound,
+    card_line, device_ms, fragment_bases,
 )
 
 N_PROFILED = 20  # calls of each kernel version under the profiler
@@ -405,7 +418,7 @@ def profile_objective(mf, fobj, card, trace):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
 
-    # the fused objective's stages on the (single) merged bucket
+    # the objective's stages on the (single) merged bucket
     (pairs,) = D.form_merge_classes(be.fragments)
     frs = [fr for fr, _ in pairs]
     pads = tuple(p for _, p in pairs)
@@ -466,10 +479,149 @@ def profile_objective(mf, fobj, card, trace):
         prof.export_chrome_trace(trace)
 
 
+class _Stopwatch:
+    """Wall seconds and call count of a function, each call timed between
+    two ``torch.cuda.synchronize()``; put in place of ``module.name``
+    while a ``with`` block runs."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.inner = getattr(module, name)
+        self.seconds, self.calls = 0.0, 0
+
+    def __call__(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ret = self.inner(*args, **kwargs)
+        torch.cuda.synchronize()
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+        return ret
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.inner)
+
+
+#: quasi-Newton steps allowed to the f32 tier's matching run, which may
+#: never reach the error norm it is asked for
+F32_MAX_ITER = 10
+
+
+def _timed_optimize(qt, be, what, card, **optimize_kw):
+    """``be.optimize(solver="CCSD")`` with its Jacobian, every objective
+    evaluation and, inside each, the fragment SCF and the CCSD iteration
+    on the stopwatch; one JSON line."""
+    from quemb_tpu_torch.matching import beopt
+    from quemb_tpu_torch.solvers import dispatch as D
+
+    be.oneshot("CCSD")  # first-use costs of the solve stay out of the run
+    evals = []
+    with _Stopwatch(D, "rhf_orthonormal") as scf, \
+            _Stopwatch(D, "_rccsd_from_mo_batched") as cc, \
+            _Stopwatch(qt.api, "get_be_error_jacobian") as jac_run:
+
+        def timed_be_func(*args, **kwargs):
+            scf0, cc0 = scf.seconds, cc.seconds
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ret = D.be_func(*args, **kwargs)
+            torch.cuda.synchronize()
+            evals.append(dict(wall_s=time.perf_counter() - t0,
+                              fragment_scf_s=scf.seconds - scf0,
+                              rccsd_s=cc.seconds - cc0,
+                              error_norm=float(ret[0])))
+            return ret
+
+        beopt.be_func = timed_be_func
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            be.optimize(solver="CCSD", only_chem=False, **optimize_kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            beopt.be_func = D.be_func
+    eval_s, scf_s, cc_s = (sum(e[k] for e in evals)
+                           for k in ("wall_s", "fragment_scf_s", "rccsd_s"))
+    print(json.dumps({
+        "part": "matching", "what": what, "card": card,
+        "ccsd_conv_tol": os.environ.get("QUEMB_TPU_CCSD_CONV_TOL"),
+        "wall_s": wall, "jacobian_s": jac_run.seconds,
+        "evaluations": len(evals), "evaluations_s": eval_s,
+        "host_qn_s": wall - jac_run.seconds - eval_s,
+        "fragment_scf_s": scf_s,
+        "fragment_scf_share_of_evaluations": scf_s / eval_s,
+        "rccsd_s": cc_s, "rccsd_share_of_evaluations": cc_s / eval_s,
+        "per_evaluation": evals,
+        "etot": be.ebe_tot, "ecorr": be.ebe_tot - be.ebe_hf,
+        "etot_dev": be.ebe_tot - ETOT_MATCHED_REF,
+        "ecorr_dev": be.ebe_tot - be.ebe_hf - ECORR_MATCHED_REF,
+    }), flush=True)
+
+
+def profile_matching(mf, fobj, card):
+    import quemb_tpu_torch as qt
+    from quemb_tpu_torch.matching import cphf
+
+    cuda = torch.device("cuda")
+    os.environ["QUEMB_TPU_CCSD_CONV_TOL"] = "1e-6"
+    be = qt.BE(mf, fobj, device=cuda)
+
+    def jacobian(jac_solver):
+        with _Stopwatch(cphf, "run_fragment_scf") as scf, \
+                _Stopwatch(cphf, "_cphf_solve") as solve:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            J = be.get_be_error_jacobian(jac_solver)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        return J, dict(wall_s=wall, fragment_scf_s=scf.seconds,
+                       cphf_solve_s=solve.seconds,
+                       rest_s=wall - scf.seconds - solve.seconds)
+
+    jac = {}
+    for jac_solver in ("HF", "HF", "MP2", "CCSD"):  # the first HF warms up
+        J, jac[jac_solver] = jacobian(jac_solver)
+        if not np.all(np.isfinite(J)):
+            raise AssertionError(f"{jac_solver} Jacobian is not finite")
+    print(json.dumps({"part": "matching", "what": "jacobian", "card": card,
+                      "shape": list(J.shape), "n_frag": fobj.n_frag,
+                      **jac}), flush=True)
+
+    _timed_optimize(qt, be, "optimize", card)
+    # the same run with the CCSD amplitudes converged further
+    os.environ["QUEMB_TPU_CCSD_CONV_TOL"] = "1e-8"
+    _timed_optimize(qt, qt.BE(mf, fobj, device=cuda), "optimize_tight_ccsd",
+                    card)
+    del os.environ["QUEMB_TPU_CCSD_CONV_TOL"]
+    # the f32 tier (f32 ERIs from the screened-DF kernel, f32 amplitudes)
+    # asked for the same error norm, with few steps allowed
+    os.environ["QUEMB_TPU_CCSD_F32_ONLY"] = "1"
+    try:
+        be32 = qt.BE(mf, fobj, int_transform="sparse-DF",
+                     auxbasis="cholesky", device=cuda)
+        _timed_optimize(qt, be32, "optimize_f32_tier", card,
+                        max_iter=F32_MAX_ITER)
+    finally:
+        del os.environ["QUEMB_TPU_CCSD_F32_ONLY"]
+
+
+PARTS = ("kernel", "kernel_parts", "objective", "matching")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", help="write the objective's Chrome trace")
+    ap.add_argument("--parts", default=",".join(PARTS),
+                    help="comma-separated parts to run (default: all)")
     args = ap.parse_args()
+    parts = args.parts.split(",")
+    if not set(parts) <= set(PARTS):
+        ap.error(f"--parts: choose from {', '.join(PARTS)}")
     if not torch.cuda.is_available():
         raise SystemExit("profile_port: torch.cuda.is_available() is false")
     import quemb_tpu_torch as qt
@@ -480,9 +632,14 @@ def main():
     mf = load_fixture(FIXTURE, XYZ)
     fobj = qt.fragmentate(mf.mol, n_BE=2, frag_type="chemgen",
                           print_frags=False)
-    profile_kernel(mf, fobj, card)
-    profile_kernel_parts(mf, fobj, card)
-    profile_objective(mf, fobj, card, args.trace)
+    if "kernel" in parts:
+        profile_kernel(mf, fobj, card)
+    if "kernel_parts" in parts:
+        profile_kernel_parts(mf, fobj, card)
+    if "objective" in parts:
+        profile_objective(mf, fobj, card, args.trace)
+    if "matching" in parts:
+        profile_matching(mf, fobj, card)
 
 
 if __name__ == "__main__":

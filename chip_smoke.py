@@ -3,8 +3,11 @@
     python3 chip_smoke.py
 
 Drives ``quemb_tpu_torch`` (and nothing of JAX) through octane (C8H18,
-STO-3G) BE2-CCSD from the committed RHF fixture, in phases; each prints
-one line, and any failure raises (non-zero exit, no ``ok`` line):
+STO-3G) BE2-CCSD from the committed RHF fixture, and through the
+density-fitted long chain C40H82 (STO-3G, nao 282, ``etb:6.0``, naux 3460,
+38 BE2 fragments) from integrals and a factor the port builds itself, in
+phases; each prints one line, and any failure raises (non-zero exit, no
+``ok`` line):
 
 0. the device: CUDA name, and ``nvidia-smi`` name and power limit;
 1. build the screened-DF CUDA kernel from ``quemb_tpu_torch/csrc``;
@@ -26,7 +29,24 @@ one line, and any failure raises (non-zero exit, no ``ok`` line):
    ``be.optimize(solver="CCSD")``, which must reach octane's reference
    E_tot and E_corr within 1e-6 Ha.  The matching loop solves fragments
    from ERIs that are already built, so it launches the kernel 0 times;
-   the kernel's count is that of phase 3.
+   the kernel's count is that of phase 3;
+7. the chain's factor and mean field: build the host integral library
+   (``g++``), ``DFTensor(mol, "etb:6.0")`` (a 2.2 GB factor), and
+   re-converge the DF-RHF on the card from the density of
+   ``fixtures/c40_sto3g_dfhf.npz``; the SCF must converge with
+   max|FDS - SDF| < 1e-6;
+8. the chain's transforms over all 38 fragments: band plan, band gather,
+   banded ``SparseDF.transform_all`` against dense
+   ``df_transform_batched`` on the same factor and bases
+   (max|banded - dense| < 1e-8), then the f32 tier: every fragment's
+   kernel output against its plain version at the fragment's real reach,
+   38 launches counted, the kernel's device time summed over the 38
+   beside the plain version's, ``torch.matmul``'s and the bound;
+9. the chain's energies: ``BE(..., int_transform="sparse-DF")`` (f64 tier)
+   and ``"int-direct-DF"`` on the same auxiliary basis, HF-in-HF of each
+   < 1e-5 Ha, one-shot BE2-CCSD E_corr within 1e-6 Ha of each other; then
+   the f32 tier (38 launches, its HF-in-HF and E_corr beside the f64
+   values, within the bars below).
 
 The last lines are the kernel report (JSON), the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -38,6 +58,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -72,6 +93,39 @@ FP32_FLOP_PER_S = 67e12
 C40_SHAPE = (3460, 282, 42)
 C40_WINDOW = range(5, 13)
 C40_TAIL_BLOCK = 17  # AOs 272-281: the ragged last block
+#: the real chain: its DF-RHF fixture (hcore, S, C, moe, e_tot, veff; no
+#: ERI and no factor), its auxiliary basis and its bars
+C40_FIXTURE = os.path.join(HERE, "fixtures", "c40_sto3g_dfhf.npz")
+C40_AUX = "etb:6.0"
+#: Ha on the SCF's energy step: below one ulp of E_el (-5092 Ha, 9e-13), so
+#: the energy must stop to the last bit and the density-change test
+#: (10 sqrt(tol) = 1e-6) decides.  The strained model chain converges
+#: slowly, and its fragment SCFs amplify what the mean field leaves: at the
+#: class default 1e-12 the SCF stops after 134 cycles at max|FDS - SDF|
+#: 9e-7 and HF-in-HF is 3.7e-4 Ha on every route; at 1e-14 it takes 715
+#: cycles to 1.8e-8 and HF-in-HF is -2.4e-6 Ha.
+C40_SCF_TOL = 1e-14
+COMMUTATOR_TOL = 1e-6  # max|FDS - SDF| of the converged mean field
+BANDED_TOL = 1e-8  # max|banded - dense| over every fragment ERI
+HF_IN_HF_TOL = 1e-5  # Ha, the package's own warning level
+SPARSE_VS_DENSE_TOL = 1e-6  # Ha, f64 sparse-DF against int-direct-DF
+#: f32 tier at C40H82: octane's f32 bars (phase 3).  Its screen is mo_eps
+#: 1e-5 per MO, but every fragment's bath reaches all 18 blocks of the
+#: chain, so nothing is skipped and what remains is f32 rounding: on the
+#: first run on the card its ERIs were 1.5e-7 to 5.8e-7 (relative) from
+#: the dense f64 ones, its HF-in-HF equal to the f64 routes' to 5e-8 Ha and
+#: its E_corr 1.0e-6 Ha from the f64 value.
+C40_F32_HF_TOL = 1e-4
+C40_F32_ECORR_TOL = 1e-4
+#: CCSD on the chain's f64 routes: its model geometry is strained (HOMO-
+#: LUMO gap 0.28 Ha at C8), the amplitudes converge slowly (up to 326
+#: iterations to 1e-6, where two routes 3e-11 apart in their ERIs stopped
+#: 80 iterations and 3.3e-7 Ha apart), and the default cap of 150 stops
+#: short.  So the two routes are compared at 1e-8, with a cap to match.
+C40_CCSD_CONV_TOL = "1e-8"
+C40_CCSD_MAX_CYCLE = "1000"
+CHAIN_TIMINGS = 5  # timings of each version per fragment; the median
+CHAIN_CALLS = 4  # back-to-back calls between two CUDA events
 
 
 def phase(n, **facts):
@@ -193,6 +247,265 @@ def check_kernel(sd, B, TA, reach):
             f"max|ref| {scale:.3e} (shape {tuple(out.shape)})"
         )
     return err
+
+
+def wall(fn):
+    """(result, seconds) of ``fn()`` with the card drained before and
+    after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def chain_mean_field(card):
+    """Phase 7: the host library, the C40H82 factor and its DF-RHF."""
+    from quemb_tpu_torch import native
+    from quemb_tpu_torch.chem.mole import Mole
+    from quemb_tpu_torch.chem.scf import RHF
+    from quemb_tpu_torch.utils.geometry import alkane_atoms
+
+    build = native._build()
+    native.get_lib()  # loads and validates, or raises
+    with np.load(C40_FIXTURE) as d:
+        n_c, e_fix = int(d["n_carbons"]), float(d["e_tot"])
+        C_fix, veff_fix = d["C"], d["veff"]
+        hcore_fix, S_fix = d["hcore"], d["S"]
+    mol = Mole(atom=alkane_atoms(n_c), basis="sto-3g")
+    mf = RHF(mol, conv_tol=C40_SCF_TOL, max_cycle=1500, with_df=True,
+             auxbasis=C40_AUX, device="cuda")
+    _, ints_s = wall(lambda: (mf.get_hcore(), mf.get_ovlp()))
+    ints_err = max(float(np.abs(mf.get_hcore() - hcore_fix).max()),
+                   float(np.abs(mf.get_ovlp() - S_fix).max()))
+    if not ints_err < 1e-8:
+        raise AssertionError(
+            f"one-electron integrals {ints_err:.3e} from the fixture's"
+        )
+    B, factor_s = wall(mf.get_df_B)
+    nocc = mol.nelectron // 2
+    dm_fix = 2.0 * C_fix[:, :nocc] @ C_fix[:, :nocc].T
+    # the fixture's density under this aux: how far its recorded veff and
+    # energy are from this factor's (the fixture does not name its aux)
+    veff_dist = float(np.abs(mf.get_veff(dm_fix) - veff_fix).max())
+    e_fix_dm = mf.energy_tot(dm_fix)
+    e_tot, scf_s = wall(lambda: mf.kernel(dm0=dm_fix))
+    S, dm = mf.get_ovlp(), mf.make_rdm1()
+    F = mf.get_hcore() + mf.get_veff(dm)
+    comm = float(np.abs(F @ dm @ S - S @ dm @ F).max())
+    phase(7, native_build_s=build["seconds"], native_cached=build["cached"],
+          nao=mol.nao, naux=int(B.shape[0]), one_electron_s=ints_s,
+          one_electron_err=ints_err, factor_s=factor_s,
+          factor_gb=B.numel() * 8 / 1e9, scf_cycles=mf.cycles,
+          scf_converged=mf.converged, scf_s=scf_s, e_tot=e_tot,
+          e_tot_minus_fixture=e_tot - e_fix,
+          e_of_fixture_density=e_fix_dm,
+          e_of_fixture_density_minus_fixture=e_fix_dm - e_fix,
+          veff_of_fixture_density_max_dist=veff_dist, commutator=comm,
+          card=card)
+    if (int(B.shape[0]), mol.nao) != C40_SHAPE[:2]:
+        raise AssertionError(f"chain widths: naux {B.shape[0]}, nao {mol.nao}")
+    if not mf.converged:
+        raise AssertionError(f"DF-RHF not converged in {mf.cycles} cycles")
+    if not comm < COMMUTATOR_TOL:
+        raise AssertionError(f"max|FDS - SDF| {comm:.3e}")
+    return mol, mf
+
+
+def chain_transforms(sd, mol, mf, fobj, flush, card):
+    """Phase 8: every fragment through the f64 banded and dense transforms
+    and through the kernel at its real reach.  Returns the kernel's worst
+    error and its summed times."""
+    from quemb_tpu_torch.ops.df import df_transform_batched
+    from quemb_tpu_torch.ops.sparse_df import SparseDF
+
+    cuda = torch.device("cuda")
+    B = mf.get_df_B()
+    TAs = fragment_bases(mf, fobj)
+    nembs = sorted({TA.shape[1] for TA in TAs})
+    sdf = SparseDF.from_factor(mol, B, device=cuda)
+    perm, col_idx, b, W = sdf._band_plan()
+    _, gather_s = wall(sdf._ensure_banded_factor)
+    sdf.transform_all(TAs[:2])  # warm the GEMM shapes
+    banded, banded_s = wall(lambda: sdf.transform_all(TAs))
+
+    def dense_all():
+        out = [None] * len(TAs)
+        for nemb in nembs:
+            idx = [i for i, TA in enumerate(TAs) if TA.shape[1] == nemb]
+            TA_b = torch.as_tensor(np.stack([TAs[i] for i in idx]),
+                                   device=cuda)
+            for i, e in zip(idx, df_transform_batched(B, TA_b)):
+                out[i] = e
+        return out
+
+    df_transform_batched(B, torch.as_tensor(np.stack(TAs[:1]), device=cuda))
+    dense, dense_s = wall(dense_all)
+    band_err = max(float((x - y).abs().max()) for x, y in zip(banded, dense))
+    eri_scale = max(float(y.abs().max()) for y in dense)
+    if not band_err < BANDED_TOL:
+        raise AssertionError(f"max|banded - dense| {band_err:.3e}")
+    del banded, sdf
+    torch.cuda.empty_cache()
+
+    # f32 tier: the kernel on the real factor at each fragment's reach
+    sdf32 = SparseDF.from_factor(mol, B, tier="f32-pallas", device=cuda)
+    B32 = sdf32.factor.B32
+    naux, nao, _ = B32.shape
+    Bv = B32.view(naux * nao, nao)
+    kept, kernel_err, kernel_scale = [], 0.0, 0.0
+    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                 cold_ms=0.0)
+    per_fragment = []
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for TA in TAs:
+            TA_eff, reach = sdf32.screen(TA)
+            TA32 = torch.as_tensor(TA_eff.astype(np.float32), device=cuda)
+            kernel_err = max(kernel_err, check_kernel(sd, B32, TA32, reach))
+            rowmask = sd.block_rowmask(reach, torch.float32, cuda)
+            TA_masked = TA32 * rowmask[:, None]
+            versions = {
+                "ms": lambda: sd.screened_first_transform(B32, TA32, reach),
+                "plain_ms": lambda: sd.screened_first_transform_plain(
+                    B32, TA32, rowmask),
+                "library_ms": lambda: torch.matmul(Bv, TA_masked),
+            }
+            t = {k: float(np.median([device_ms(fn, CHAIN_CALLS)
+                                     for _ in range(CHAIN_TIMINGS)]))
+                 for k, fn in versions.items()}
+            t["cold_ms"] = float(np.median(
+                [device_ms(versions["ms"], 1, flush)
+                 for _ in range(CHAIN_TIMINGS)]))
+            t["bound_ms"] = call_bound(sd, naux, nao, TA32.shape[1],
+                                       reach)["bound_ms"]
+            t["kept"] = int(sd.kept_blocks(reach).size)
+            for k in total:
+                total[k] += t[k]
+            kept.append(t["kept"])
+            per_fragment.append(t)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    sd.LAUNCHES = 0
+    eris32, f32_s = wall(lambda: sdf32.transform_all(TAs))
+    launches = sd.LAUNCHES
+    if launches != len(TAs):
+        raise AssertionError(
+            f"{launches} kernel launches for {len(TAs)} fragments"
+        )
+    f32_rel = [float((x - y).abs().max() / y.abs().max())
+               for x, y in zip(eris32, dense)]
+    by_kept = {}
+    for t in per_fragment:
+        by_kept.setdefault(t["kept"], []).append(t)
+    by_kept = {
+        k: dict(fragments=len(v), **{
+            f: float(np.median([t[f] for t in v]))
+            for f in ("ms", "cold_ms", "plain_ms", "library_ms", "bound_ms")
+        }) for k, v in sorted(by_kept.items())
+    }
+    phase(8, n_frag=len(TAs), nemb=nembs, band_W=W, band_b=b,
+          band_fraction=sdf32.band_fraction or W / nao,
+          band_gather_s=gather_s, banded_s=banded_s, dense_s=dense_s,
+          banded_over_dense=banded_s / dense_s, banded_max_abs_err=band_err,
+          eri_max_abs=eri_scale, kernel_launches=launches,
+          kernel_max_abs_err=kernel_err, tol_rel=KERNEL_REL_TOL,
+          kept_blocks_of=-(-nao // sd.NU_BLOCK), kept_min=min(kept),
+          kept_mean=float(np.mean(kept)), kept_max=max(kept),
+          kernel_sum=total, kernel_share_of_bound=total["bound_ms"]
+          / total["ms"], kernel_share_of_bound_cold=total["bound_ms"]
+          / total["cold_ms"], kernel_over_library=total["ms"]
+          / total["library_ms"], by_kept_blocks=by_kept,
+          f32_transform_all_s=f32_s, f32_vs_dense_rel_min=min(f32_rel),
+          f32_vs_dense_rel_max=max(f32_rel), timings=CHAIN_TIMINGS,
+          calls_per_timing=CHAIN_CALLS, card=card)
+    return kernel_err, total
+
+
+def chain_energies(qt, sd, mf, fobj, card):
+    """Phase 9: HF-in-HF and one-shot BE2-CCSD E_corr of the chain through
+    the f64 sparse-DF tier, int-direct-DF and the f32 tier.  Returns the
+    f32 tier's kernel launches."""
+    from quemb_tpu_torch.solvers import rccsd
+
+    cuda = torch.device("cuda")
+    out = {}
+    iterations = []
+    rdiis_inner = rccsd._rdiis_stage
+
+    def counted_rdiis(*args, **kwargs):
+        ret = rdiis_inner(*args, **kwargs)
+        iterations.append(int(ret[2].max()))
+        return ret
+
+    tol_before = os.environ.get("QUEMB_TPU_CCSD_CONV_TOL")
+    os.environ["QUEMB_TPU_CCSD_CONV_TOL"] = C40_CCSD_CONV_TOL
+    os.environ["QUEMB_TPU_CCSD_MAX_CYCLE"] = C40_CCSD_MAX_CYCLE
+    rccsd._rdiis_stage = counted_rdiis
+    try:
+        for key, route in (("sparse", "sparse-DF"),
+                           ("direct", "int-direct-DF")):
+            be, init_s = wall(lambda: qt.BE(mf, fobj, int_transform=route,
+                                            auxbasis=C40_AUX, device=cuda))
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                _, solve_s = wall(lambda: be.oneshot("CCSD"))
+            stalled = [str(w.message) for w in caught
+                       if "not fully converged" in str(w.message)]
+            if stalled:
+                raise AssertionError(f"{route}: {stalled}")
+            out[key] = dict(hf_in_hf=mf.e_tot - be.ebe_hf,
+                            ecorr=be.ebe_tot - be.ebe_hf, init_s=init_s,
+                            oneshot_s=solve_s,
+                            ccsd_iterations_max=max(iterations))
+            iterations.clear()
+            del be
+            torch.cuda.empty_cache()
+        os.environ["QUEMB_TPU_CCSD_F32_ONLY"] = "1"
+        sd.LAUNCHES = 0
+        be32, init_s = wall(lambda: qt.BE(
+            mf, fobj, int_transform="sparse-DF", auxbasis=C40_AUX,
+            device=cuda))
+        launches = sd.LAUNCHES
+        _, solve_s = wall(lambda: be32.oneshot("CCSD"))
+    finally:
+        rccsd._rdiis_stage = rdiis_inner
+        os.environ.pop("QUEMB_TPU_CCSD_F32_ONLY", None)
+        del os.environ["QUEMB_TPU_CCSD_MAX_CYCLE"]
+        if tol_before is None:
+            del os.environ["QUEMB_TPU_CCSD_CONV_TOL"]
+        else:
+            os.environ["QUEMB_TPU_CCSD_CONV_TOL"] = tol_before
+    out["f32"] = dict(hf_in_hf=mf.e_tot - be32.ebe_hf,
+                      ecorr=be32.ebe_tot - be32.ebe_hf, init_s=init_s,
+                      oneshot_s=solve_s, kernel_launches=launches,
+                      ccsd_iterations_max=max(iterations))
+    diff = out["sparse"]["ecorr"] - out["direct"]["ecorr"]
+    f32_diff = out["f32"]["ecorr"] - out["sparse"]["ecorr"]
+    phase(9, e_hf=mf.e_tot, ccsd_max_cycle=int(C40_CCSD_MAX_CYCLE),
+          ccsd_conv_tol=C40_CCSD_CONV_TOL,
+          sparse_minus_direct_ecorr=diff,
+          f32_minus_f64_ecorr=f32_diff, n_frag=fobj.n_frag, card=card,
+          **{f"{k}_{f}": v for k, d in out.items() for f, v in d.items()})
+    for key in ("sparse", "direct"):
+        if not abs(out[key]["hf_in_hf"]) < HF_IN_HF_TOL:
+            raise AssertionError(
+                f"{key} HF-in-HF {out[key]['hf_in_hf']:.3e} Ha"
+            )
+    if not abs(diff) < SPARSE_VS_DENSE_TOL:
+        raise AssertionError(f"sparse-DF - int-direct-DF E_corr {diff:.3e}")
+    if launches != fobj.n_frag:
+        raise AssertionError(
+            f"{launches} kernel launches for {fobj.n_frag} fragments"
+        )
+    if not abs(out["f32"]["hf_in_hf"]) < C40_F32_HF_TOL:
+        raise AssertionError(
+            f"f32 tier HF-in-HF {out['f32']['hf_in_hf']:.3e} Ha"
+        )
+    if not abs(f32_diff) < C40_F32_ECORR_TOL:
+        raise AssertionError(f"f32 tier E_corr {f32_diff:.3e} Ha from f64")
+    return launches
 
 
 def main():
@@ -407,13 +720,29 @@ def main():
             f"matched E_corr {ecorr_m:.10f}: |dev| >= {MATCHED_TOL:g} Ha"
         )
 
+    del be
+    torch.cuda.empty_cache()
+
+    # ---- 7-9. the density-fitted chain, C40H82
+    mol40, mf40 = chain_mean_field(card)
+    fobj40 = qt.fragmentate(mol40, n_BE=2, frag_type="chemgen",
+                            print_frags=False)
+    flush = torch.zeros(FLUSH_BYTES // 4, dtype=torch.float32, device=cuda)
+    chain_err, chain_sum = chain_transforms(sd, mol40, mf40, fobj40, flush,
+                                            card)
+    del flush
+    chain_launches = chain_energies(qt, sd, mf40, fobj40, card)
+    max_err = max(max_err, chain_err)
+
     main = timed["octane_frag0"]
     print(json.dumps({"kernels": [{
         "name": "screened_first_transform",
         "route": "cuda",
         "source": "quemb_tpu_torch/csrc/screened_first_transform.cu",
         "replaces": "quemb_tpu/ops/pallas_df.py:30",
-        "launches": launches,
+        "launches": launches + chain_launches,
+        "launches_by_path": {"octane_f32_tier": launches,
+                             "c40_f32_tier": chain_launches},
         "max_abs_err": max_err,
         "ms": main["ms"],
         "plain_ms": main["plain_ms"],
@@ -421,6 +750,7 @@ def main():
         "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
         "cold_ms": main["cold_ms"],
+        "c40_chain_38_fragments_sum": chain_sum,
         "shapes": {k: {f: v[f] for f in (
             "shape", "ms", "cold_ms", "plain_ms", "plain_cold_ms",
             "library_ms", "library_cold_ms", "bound_ms", "bound_by",

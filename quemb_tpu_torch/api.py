@@ -4,11 +4,12 @@ JAX counterpart: ``quemb_tpu/api.py``.  Mirrors the reference molbe
 ``BE``/``fragmentate`` entry points (reference molbe/mbe.py:173,
 molbe/fragment.py:22) for the slice this port carries: chemgen
 fragmentation, Lowdin localization, Schmidt embedding, the fragment ERI
-transform (``"in-core"``, or ``"sparse-DF"`` under the f32 tier, which
-runs the screened-DF CUDA kernel), batched fragment initialization, the
-one-shot solve and density matching (``optimize``: analytic HF/MP2/CCSD or
-numerical Jacobian, quasi-Newton loop) with the CCSD, MP2 and FCI bucket
-solvers.
+transform (``"in-core"`` and the density-fitted routes ``"int-direct-DF"``,
+``"sparse-DF"``, ``"on-fly-sparse-DF"`` and ``"out-core-DF"``; under the
+f32 tier ``"sparse-DF"`` runs the screened-DF CUDA kernel), batched
+fragment initialization, the one-shot solve and density matching
+(``optimize``: analytic HF/MP2/CCSD or numerical Jacobian, quasi-Newton
+loop) with the CCSD, MP2 and FCI bucket solvers.
 
 Device work runs on an explicit ``torch.device``: ``BE(..., device=...)``
 defaults to CUDA and raises when no card is present; the CPU is used only
@@ -36,6 +37,7 @@ from quemb_tpu_torch.lo.lowdin import lowdin_orth
 from quemb_tpu_torch.matching.beopt import BEOPT
 from quemb_tpu_torch.matching.cphf import get_be_error_jacobian
 from quemb_tpu_torch.solvers.dispatch import be_func
+from quemb_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -98,14 +100,16 @@ def initialize_pot(n_frag: int, relAO_per_edge_per_frag) -> list[float]:
     return pot
 
 
-def _resolve_device(device) -> torch.device:
-    device = torch.device("cuda") if device is None else torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "BE(device=cuda): no CUDA device is available; pass"
-            " device='cpu' to run on the CPU"
-        )
-    return device
+def _same_auxbasis(a, b) -> bool:
+    if isinstance(a, str) and isinstance(b, str):
+        return a.lower() == b.lower()
+    return a is b
+
+
+_INT_TRANSFORMS = (
+    "in-core", "int-direct-DF", "sparse-DF", "out-core-DF",
+    "on-fly-sparse-DF",
+)
 
 
 class BE:
@@ -120,22 +124,34 @@ class BE:
         thr_bath: float = 1.0e-10,
         int_transform: str = "in-core",
         auxbasis=None,
+        screen_eps: float | None = None,
         MO_coeff_epsilon: float = 1.0e-5,
+        AO_coeff_epsilon: float = 1.0e-10,
         device: torch.device | str | None = None,
     ):
         """int_transform: "in-core" (dense AO ERI: the pivoted-Cholesky
         factor route on CUDA, quarter transforms on the CPU; see
-        :meth:`_incore_via_cd`) or "sparse-DF" (the screened f32 tier,
-        which needs ``QUEMB_TPU_CCSD_F32_ONLY=1`` and
-        ``auxbasis="cholesky[:tol]"``; the f64 tier is ROADMAP A13).
-        ``MO_coeff_epsilon`` is the sparse-DF per-MO screening threshold
-        (reference mbe.py:191).  ``device`` defaults to CUDA."""
-        if int_transform not in ("in-core", "sparse-DF"):
-            raise NotImplementedError(
-                f"int_transform={int_transform!r}: only 'in-core' and"
-                " 'sparse-DF' are ported (the other DF routes are"
-                " ROADMAP A13)"
-            )
+        :meth:`_incore_via_cd`), "int-direct-DF" (density-fitted, the
+        whole factor against every fragment), "sparse-DF" (S_abs-screened
+        DF, the performance path: the banded or union-gather f64 tier, or
+        under ``QUEMB_TPU_CCSD_F32_ONLY=1`` the f32 tier that runs the
+        screened-DF kernel), "out-core-DF" (streamed DF factor blocks
+        under the memory budget) or "on-fly-sparse-DF" (per-fragment
+        screened (P|mu nu) recompute under the memory budget).  No DF
+        route reads the dense AO ERI, except to factorize it when
+        ``auxbasis`` is ``"cholesky[:tol]"``.
+        ``auxbasis`` accepts an aux Mole or a spec string ("etb:<beta>",
+        "cholesky[:tol]", "weigend"; see ops/df.py:resolve_auxbasis);
+        default: even-tempered from the orbital basis.
+
+        ``MO_coeff_epsilon`` / ``AO_coeff_epsilon`` are the sparse-DF
+        screening thresholds with the reference's names and production
+        defaults (mbe.py:191-192): the per-MO reachability screen and
+        the geometric AO-pair screen.  ``screen_eps`` (legacy single
+        knob) overrides both when given.  ``device`` defaults to CUDA; a
+        mean field that was given no device runs its J/K there too."""
+        if int_transform not in _INT_TRANSFORMS:
+            raise ValueError(f"int_transform={int_transform}")
         if lo_method.lower() != "lowdin":
             raise NotImplementedError(
                 f"lo_method={lo_method!r}: only Lowdin is ported (ROADMAP"
@@ -143,10 +159,15 @@ class BE:
             )
         if fobj.frozen_core:
             raise NotImplementedError("frozen core is ROADMAP A10")
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device, "BE")
+        mf.bind_device(self.device)
         self.int_transform = int_transform
         self.auxbasis = auxbasis
+        if screen_eps is not None:
+            MO_coeff_epsilon = AO_coeff_epsilon = screen_eps
+        self.screen_eps = screen_eps
         self.MO_coeff_epsilon = MO_coeff_epsilon
+        self.AO_coeff_epsilon = AO_coeff_epsilon
         self.mf = mf
         self.fobj = fobj
         self.thr_bath = thr_bath
@@ -187,6 +208,32 @@ class BE:
             return False
         return self.device.type != "cpu"
 
+    def _df_factor(self):
+        """The whitened factor [naux, nao, nao] of ``self.auxbasis`` for the
+        routes that hold it whole: a host array, or the mean field's device
+        tensor when it was converged on the same auxiliary basis (the same
+        function of the same molecule, so it is reused, not rebuilt).
+        ``"cholesky[:tol]"`` factorizes the mean field's dense ERI; every
+        other spec goes through the three-center integrals and never forms
+        it."""
+        from quemb_tpu_torch.ops.df import (
+            DFTensor,
+            cholesky_df_factor,
+            resolve_auxbasis,
+        )
+
+        mf = self.mf
+        if (
+            getattr(mf, "with_df", False)
+            and mf._df_B is not None
+            and _same_auxbasis(mf.auxbasis, self.auxbasis)
+        ):
+            return mf.get_df_B()
+        kind, arg = resolve_auxbasis(self.mol, self.auxbasis)
+        if kind == "cholesky":
+            return cholesky_df_factor(self.mol, tol=arg, eri=mf.get_eri())
+        return DFTensor(self.mol, arg).B
+
     # ------------------------------------------------------------ localize
     def localize(self) -> None:
         """Lowdin orthogonalization: W = S^{-1/2}, lmo_coeff = W^T S C."""
@@ -207,32 +254,58 @@ class BE:
         t0 = time.perf_counter()
         dev = self.device
 
-        if self.int_transform == "sparse-DF":
-            from quemb_tpu_torch.ops.df import cholesky_df_factor, \
-                resolve_auxbasis
+        TAs = [fr.TA for fr in self.fragments]
+        if self.int_transform == "int-direct-DF":
+            from quemb_tpu_torch.ops.df import df_transform_batched
+
+            B_dev = torch.as_tensor(self._df_factor(), device=dev)
+            buckets: dict[int, list[Fragment]] = {}
+            for fr in self.fragments:
+                buckets.setdefault(fr.nao, []).append(fr)
+            for frs in buckets.values():
+                TA_b = torch.as_tensor(
+                    np.stack([fr.TA for fr in frs]), device=dev
+                )
+                for fr, eri in zip(frs, df_transform_batched(B_dev, TA_b)):
+                    fr.eri = eri
+        elif self.int_transform == "sparse-DF":
             from quemb_tpu_torch.ops.sparse_df import SparseDF
             from quemb_tpu_torch.solvers.ccsd import _f32_only
 
-            if not _f32_only():
-                raise NotImplementedError(
-                    "sparse-DF runs the f32 tier only"
-                    " (QUEMB_TPU_CCSD_F32_ONLY=1); its f64 tier is"
-                    " ROADMAP A13"
-                )
-            # the factor of the mean field's own ERI: the counterpart of
-            # DFTensor(mol, "cholesky") without the integral engine
-            _, tol = resolve_auxbasis(self.mol, self.auxbasis)
-            B = cholesky_df_factor(self.mol, tol=tol, eri=self.mf.get_eri())
+            # Under the f32-only capacity tier the solver iterates in f32
+            # anyway, so the screened first transform runs as the CUDA
+            # block-skip kernel without changing the attainable accuracy.
+            tier = "f32-pallas" if _f32_only() else "f64"
             sdf = SparseDF.from_factor(
-                self.mol, B, mo_eps=self.MO_coeff_epsilon, device=dev
+                self.mol, self._df_factor(), tier=tier,
+                mo_eps=self.MO_coeff_epsilon, ao_eps=self.AO_coeff_epsilon,
+                device=dev,
             )
-            eris = sdf.transform_all([fr.TA for fr in self.fragments])
-            for fr, eri in zip(self.fragments, eris):
+            for fr, eri in zip(self.fragments, sdf.transform_all(TAs)):
                 fr.eri = eri
             logger.info(
                 "sparse-DF mean reachable-AO fraction: "
-                f"{sdf.last_reach_fraction:.3f} (tier f32-pallas)"
+                f"{sdf.last_reach_fraction:.3f} (tier {tier})"
             )
+        elif self.int_transform == "on-fly-sparse-DF":
+            from quemb_tpu_torch.ops.sparse_df import OnFlySparseDF
+
+            sdf = OnFlySparseDF(
+                self.mol, self.auxbasis, mo_eps=self.MO_coeff_epsilon,
+                device=dev,
+            )
+            for fr, eri in zip(self.fragments, sdf.transform_all(TAs)):
+                fr.eri = eri
+            logger.info(
+                "on-fly-sparse-DF mean reachable-AO fraction: "
+                f"{sdf.last_reach_fraction:.3f}"
+            )
+        elif self.int_transform == "out-core-DF":
+            from quemb_tpu_torch.ops.df import StreamedDF
+
+            sdf = StreamedDF(self.mol, self.auxbasis, device=dev)
+            for fr in self.fragments:
+                fr.eri = sdf.fragment_eri(fr.TA)
         elif self._incore_via_cd():
             # compress the AO ERI by diagonal-pivoted Cholesky (every
             # element exact to 1e-10) and run all fragment transforms as

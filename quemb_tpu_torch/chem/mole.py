@@ -7,7 +7,7 @@ shells are sorted by angular momentum (all s shells, then p shells, ...);
 p components ordered (x, y, z).
 
 JAX counterpart: ``quemb_tpu/chem/mole.py``, of which this is a copy (it
-holds no jax).
+holds no jax), without ECPs.
 """
 
 from __future__ import annotations
@@ -109,12 +109,13 @@ class Mole:
         cart: bool = True,
         ecp=None,
     ):
-        """Cartesian AOs without ECPs only: spherical AOs (``cart=False``)
-        and ECPs come with the integral engine (ROADMAP A11) and raise."""
-        if not cart or ecp:
+        """cart=False builds real-spherical-harmonic AOs (the PySCF
+        default for d and higher); the integral engine stays cartesian
+        internally with a block c2s transform at the interface.  ECPs are
+        not ported and raise (ROADMAP A11, ECP)."""
+        if ecp:
             raise NotImplementedError(
-                "spherical AOs and ECPs arrive with the integral engine"
-                " (ROADMAP A11)"
+                "ECPs are not ported (ROADMAP A11, ECP)"
             )
         self.cart = cart
         self.basis = basis
@@ -189,8 +190,14 @@ class Mole:
                 (start, offset if cart else sph_offset)
             )
         self.nao_cart = offset
-        self.nao = offset
-        self.c2s = None
+        if cart:
+            self.nao = offset
+            self.c2s = None
+        else:
+            from quemb_tpu_torch.chem.sph import mol_c2s
+
+            self.nao = sph_offset
+            self.c2s = mol_c2s(self)
         return self
 
     # -------------------------------------------------------------- accessors

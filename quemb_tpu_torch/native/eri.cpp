@@ -1,0 +1,606 @@
+/* McMurchie-Davidson Gaussian integral engine (C++17 + OpenMP).
+ *
+ * Native analog of the reference's compiled integral layer: where
+ * troyvvgroup/quemb reaches PySCF's C kernels + its own
+ * _cpp/eri_sparse_DF.cpp for the heavy host-side integral work, this
+ * engine generates the 4c/3c/2c Coulomb integrals for the TPU build's
+ * ingestion stage.  Semantics mirror quemb_tpu_torch/chem/integrals.py exactly
+ * (cartesian component order, contraction normalization, 8-fold symmetry
+ * scatter, Schwarz screening); the Python engine remains as the
+ * reference implementation and fallback.
+ *
+ * Contracted shells, arbitrary angular momentum (tested through l=4),
+ * OpenMP over bra shell pairs.  Different shell quartets never write the
+ * same output element (AO pairs partition by shell pair), so the
+ * symmetry scatter is race-free.
+ */
+
+#include <algorithm>
+#include <cmath>
+#include <cstddef>
+#include <cstdint>
+#include <cstring>
+#include <utility>
+#include <vector>
+
+using std::ptrdiff_t;
+
+#ifdef _OPENMP
+#include <omp.h>
+#endif
+
+extern "C" void boys_batch(int mmax, const double *T, ptrdiff_t n,
+                           double *out);
+
+namespace {
+
+constexpr int MAXL = 18;  // max t+u+v of the Hermite expansion (4*l_max+2)
+
+inline int ncart(int l) { return (l + 1) * (l + 2) / 2; }
+
+/* Hermite index list for total order <= L, matching
+ * integrals.hermite_index_list: (t, u, v) with t outer, then u, then v. */
+struct HermiteIndex {
+    int n;                     // number of (t,u,v) with t+u+v <= L
+    std::vector<int> t, u, v;  // component lists
+    std::vector<int> pos;      // dense lookup pos[t*S2+u*S+v]
+    int S;
+
+    explicit HermiteIndex(int L) : S(L + 1) {
+        pos.assign(S * S * S, -1);
+        n = 0;
+        for (int tt = 0; tt <= L; ++tt)
+            for (int uu = 0; uu <= L - tt; ++uu)
+                for (int vv = 0; vv <= L - tt - uu; ++vv) {
+                    t.push_back(tt);
+                    u.push_back(uu);
+                    v.push_back(vv);
+                    pos[(tt * S + uu) * S + vv] = n++;
+                }
+    }
+    inline int at(int tt, int uu, int vv) const {
+        return pos[(tt * S + uu) * S + vv];
+    }
+};
+
+/* cartesian components in the Python engine's order: lx descending,
+ * then ly descending */
+inline void cart_components(int l, int *cx, int *cy, int *cz) {
+    int k = 0;
+    for (int lx = l; lx >= 0; --lx)
+        for (int ly = l - lx; ly >= 0; --ly) {
+            cx[k] = lx;
+            cy[k] = ly;
+            cz[k] = l - lx - ly;
+            ++k;
+        }
+}
+
+/* 1D Hermite expansion coefficients E_t^{ij} for one primitive pair.
+ * E[(i*(lb+1)+j)*(la+lb+1) + t]                                        */
+void e_coeffs(int la, int lb, double a, double b, double AB, double *E) {
+    const int nt = la + lb + 1;
+    const double p = a + b;
+    const double mu = a * b / p;
+    const double XPA = -b / p * AB;
+    const double XPB = a / p * AB;
+    const double inv2p = 0.5 / p;
+    auto idx = [&](int i, int j, int t) { return (i * (lb + 1) + j) * nt + t; };
+    std::memset(E, 0, sizeof(double) * (la + 1) * (lb + 1) * nt);
+    E[idx(0, 0, 0)] = std::exp(-mu * AB * AB);
+    for (int i = 0; i <= la; ++i)
+        for (int j = 0; j <= lb; ++j) {
+            if (i == 0 && j == 0) continue;
+            for (int t = 0; t <= i + j; ++t) {
+                double val = 0.0;
+                if (i > 0) {
+                    if (t > 0) val += inv2p * E[idx(i - 1, j, t - 1)];
+                    if (t <= i + j - 1) val += XPA * E[idx(i - 1, j, t)];
+                    if (t + 1 <= i + j - 1)
+                        val += (t + 1) * E[idx(i - 1, j, t + 1)];
+                } else {
+                    if (t > 0) val += inv2p * E[idx(i, j - 1, t - 1)];
+                    if (t <= i + j - 1) val += XPB * E[idx(i, j - 1, t)];
+                    if (t + 1 <= i + j - 1)
+                        val += (t + 1) * E[idx(i, j - 1, t + 1)];
+                }
+                E[idx(i, j, t)] = val;
+            }
+        }
+}
+
+/* R_{tuv}(alpha, PQ) for t+u+v <= L into R[hidx.n] (n=0 layer).
+ * Layered downward recursion; layers indexed by the same HermiteIndex. */
+void r_tensor(int L, double alpha, const double *PQ, const HermiteIndex &hi,
+              double *R, double *work /* >= 2*hi.n */) {
+    const double T = alpha * (PQ[0] * PQ[0] + PQ[1] * PQ[1] + PQ[2] * PQ[2]);
+    double F[MAXL + 1];
+    boys_batch(L, &T, 1, F);
+    if (L == 0) {  // all-s fast path
+        R[0] = F[0];
+        return;
+    }
+    // base layer values (-2 alpha)^n F_n
+    double base[MAXL + 1];
+    double pref = 1.0;
+    for (int n = 0; n <= L; ++n) {
+        base[n] = pref * F[n];
+        pref *= -2.0 * alpha;
+    }
+    const double X = PQ[0], Y = PQ[1], Z = PQ[2];
+    // cur holds layer n+1, nxt built as layer n (descending n)
+    double *cur = work, *nxt = work + hi.n;
+    cur[hi.at(0, 0, 0)] = base[L];
+    for (int n = L - 1; n >= 0; --n) {
+        const int Lr = L - n;  // max total order needed at this layer
+        for (int k = 0; k < hi.n; ++k) {
+            const int t = hi.t[k], u = hi.u[k], v = hi.v[k];
+            if (t + u + v > Lr) continue;
+            double val;
+            if (t == 0 && u == 0 && v == 0) {
+                val = base[n];
+            } else if (t > 0) {
+                val = X * cur[hi.at(t - 1, u, v)];
+                if (t > 1) val += (t - 1) * cur[hi.at(t - 2, u, v)];
+            } else if (u > 0) {
+                val = Y * cur[hi.at(t, u - 1, v)];
+                if (u > 1) val += (u - 1) * cur[hi.at(t, u - 2, v)];
+            } else {
+                val = Z * cur[hi.at(t, u, v - 1)];
+                if (v > 1) val += (v - 1) * cur[hi.at(t, u, v - 2)];
+            }
+            nxt[k] = val;
+        }
+        std::swap(cur, nxt);
+    }
+    if (cur != R) std::memcpy(R, cur, sizeof(double) * hi.n);
+}
+
+/* ---------------- shell table -------------------------------------- */
+struct ShellRef {
+    int l, nprim;
+    const double *exps, *coefs;
+    const double *center;
+    int ao_off;
+};
+
+/* one precomputed shell pair: flattened primitive pairs with
+ * per-primitive-pair combined Hermite coefficients H[K][nab][nT] */
+struct PairData {
+    int la, lb, K, nab, nT, Lx;
+    int ao_a, ao_b;
+    std::vector<double> p, cc;  // [K]
+    std::vector<double> P;      // [K][3]
+    std::vector<double> H;      // [K][nab][nT]
+    std::vector<double> hmax;   // [K] max |H| per primitive pair
+    double schwarz = 0.0;
+};
+
+void build_pair(const ShellRef &sa, const ShellRef &sb,
+                const HermiteIndex &hi, PairData &pd) {
+    const int la = sa.l, lb = sb.l;
+    pd.la = la;
+    pd.lb = lb;
+    pd.Lx = la + lb;
+    pd.ao_a = sa.ao_off;
+    pd.ao_b = sb.ao_off;
+    const int na = ncart(la), nb = ncart(lb);
+    pd.nab = na * nb;
+    pd.nT = hi.n;
+    const int K = sa.nprim * sb.nprim;
+    pd.K = K;
+    pd.p.resize(K);
+    pd.cc.resize(K);
+    pd.P.resize(3 * K);
+    pd.H.assign((size_t)K * pd.nab * pd.nT, 0.0);
+    pd.hmax.assign(K, 0.0);
+    int ax[45], ay[45], az[45], bx[45], by[45], bz[45];
+    cart_components(la, ax, ay, az);
+    cart_components(lb, bx, by, bz);
+    const int nt1 = la + lb + 1;
+    std::vector<double> Ex((la + 1) * (lb + 1) * nt1);
+    std::vector<double> Ey((la + 1) * (lb + 1) * nt1);
+    std::vector<double> Ez((la + 1) * (lb + 1) * nt1);
+    auto eidx = [&](int i, int j, int t) {
+        return (i * (lb + 1) + j) * nt1 + t;
+    };
+    int k = 0;
+    for (int ia = 0; ia < sa.nprim; ++ia)
+        for (int ib = 0; ib < sb.nprim; ++ib, ++k) {
+            const double a = sa.exps[ia], b = sb.exps[ib];
+            const double p = a + b;
+            pd.p[k] = p;
+            pd.cc[k] = sa.coefs[ia] * sb.coefs[ib];
+            for (int d = 0; d < 3; ++d)
+                pd.P[3 * k + d] =
+                    (a * sa.center[d] + b * sb.center[d]) / p;
+            e_coeffs(la, lb, a, b, sa.center[0] - sb.center[0], Ex.data());
+            e_coeffs(la, lb, a, b, sa.center[1] - sb.center[1], Ey.data());
+            e_coeffs(la, lb, a, b, sa.center[2] - sb.center[2], Ez.data());
+            double *Hk = &pd.H[(size_t)k * pd.nab * pd.nT];
+            for (int ca = 0; ca < na; ++ca)
+                for (int cb = 0; cb < nb; ++cb) {
+                    const int ab = ca * nb + cb;
+                    for (int t = 0; t <= ax[ca] + bx[cb]; ++t) {
+                        const double ext = Ex[eidx(ax[ca], bx[cb], t)];
+                        if (ext == 0.0) continue;
+                        for (int u = 0; u <= ay[ca] + by[cb]; ++u) {
+                            const double eyu =
+                                ext * Ey[eidx(ay[ca], by[cb], u)];
+                            if (eyu == 0.0) continue;
+                            for (int v = 0; v <= az[ca] + bz[cb]; ++v) {
+                                const double h =
+                                    eyu * Ez[eidx(az[ca], bz[cb], v)];
+                                Hk[ab * pd.nT + hi.at(t, u, v)] = h;
+                                pd.hmax[k] =
+                                    std::max(pd.hmax[k], std::fabs(h));
+                            }
+                        }
+                    }
+                }
+        }
+}
+
+constexpr double TWO_PI_POW = 34.98683665524972497;  // 2 * pi^2.5
+
+/* contracted ERI block for one (bra pair, ket pair): out[nab*ncd] */
+void quartet(const PairData &b, const PairData &k, const HermiteIndex &hb,
+             const HermiteIndex &hk, const HermiteIndex &hall,
+             const int *cmap /* [b.nT][k.nT] */, const double *sgn,
+             double *out, double *scratch) {
+    const int nab = b.nab, ncd = k.nab;
+    std::memset(out, 0, sizeof(double) * nab * ncd);
+    double *R = scratch;                    // [hall.n]
+    double *Rwork = scratch + hall.n;       // [2*hall.n]
+    double *TK = scratch + 3 * hall.n;      // [ncd][b.nT]
+    const int L = b.Lx + k.Lx;
+    for (int kp = 0; kp < b.K; ++kp) {
+        const double p = b.p[kp];
+        const double *P = &b.P[3 * kp];
+        for (int lq = 0; lq < k.K; ++lq) {
+            const double q = k.p[lq];
+            const double psum = p + q;
+            const double alpha = p * q / psum;
+            const double PQ[3] = {P[0] - k.P[3 * lq + 0],
+                                  P[1] - k.P[3 * lq + 1],
+                                  P[2] - k.P[3 * lq + 2]};
+            const double pref = TWO_PI_POW / (p * q * std::sqrt(psum)) *
+                                b.cc[kp] * k.cc[lq];
+            // primitive screening: |contribution| is bounded by
+            // |pref| hmax_b hmax_k sup|R|, with |R_tuv| growing at most
+            // like (2 alpha)^{(t+u+v)/2} * F — use a conservative
+            // (1+2a)^{L/2} envelope so tight primitives are never
+            // wrongly skipped.
+            if (std::fabs(pref) * b.hmax[kp] * k.hmax[lq] *
+                    std::pow(1.0 + 2.0 * alpha, 0.5 * L) <
+                1e-16)
+                continue;
+            r_tensor(L, alpha, PQ, hall, R, Rwork);
+            const double *Hk = &k.H[(size_t)lq * ncd * k.nT];
+            // TK[cd][t1] = sum_t2 Hk[cd][t2] sgn[t2] R[cmap[t1][t2]]
+            for (int cd = 0; cd < ncd; ++cd) {
+                double *tk = TK + (size_t)cd * b.nT;
+                for (int t1 = 0; t1 < b.nT; ++t1) {
+                    double acc = 0.0;
+                    const int *cm = cmap + (size_t)t1 * k.nT;
+                    const double *hrow = Hk + (size_t)cd * k.nT;
+                    for (int t2 = 0; t2 < k.nT; ++t2)
+                        acc += hrow[t2] * sgn[t2] * R[cm[t2]];
+                    tk[t1] = acc;
+                }
+            }
+            const double *Hb = &b.H[(size_t)kp * nab * b.nT];
+            for (int ab = 0; ab < nab; ++ab) {
+                const double *hrow = Hb + (size_t)ab * b.nT;
+                for (int cd = 0; cd < ncd; ++cd) {
+                    const double *tk = TK + (size_t)cd * b.nT;
+                    double acc = 0.0;
+                    for (int t1 = 0; t1 < b.nT; ++t1)
+                        acc += hrow[t1] * tk[t1];
+                    out[ab * ncd + cd] += pref * acc;
+                }
+            }
+        }
+    }
+}
+
+struct Engine {
+    std::vector<ShellRef> shells;
+    std::vector<PairData> pairs;          // bra shell pairs (i >= j)
+    std::vector<HermiteIndex> hidx;       // hidx[L] for L = 0..2*MAXL
+    // cmap cache per (L1, L2)
+    std::vector<std::vector<int>> cmaps;
+    std::vector<std::vector<double>> sgns;
+    int maxL2 = 0;
+
+    HermiteIndex &hi(int L) { return hidx[L]; }
+
+    void init_h(int maxL) {
+        for (int L = 0; L <= maxL; ++L) hidx.emplace_back(L);
+        maxL2 = maxL;
+        cmaps.resize((maxL + 1) * (maxL + 1));
+        sgns.resize(maxL + 1);
+    }
+    const int *cmap(int L1, int L2) {
+        auto &cm = cmaps[L1 * (maxL2 + 1) + L2];
+        if (cm.empty()) {
+            const HermiteIndex &h1 = hidx[L1], &h2 = hidx[L2],
+                               &ha = hidx[L1 + L2];
+            cm.resize((size_t)h1.n * h2.n);
+            for (int i = 0; i < h1.n; ++i)
+                for (int j = 0; j < h2.n; ++j)
+                    cm[(size_t)i * h2.n + j] = ha.at(
+                        h1.t[i] + h2.t[j], h1.u[i] + h2.u[j],
+                        h1.v[i] + h2.v[j]);
+        }
+        return cm.data();
+    }
+    const double *sgn(int L2) {
+        auto &sg = sgns[L2];
+        if (sg.empty()) {
+            const HermiteIndex &h2 = hidx[L2];
+            sg.resize(h2.n);
+            for (int j = 0; j < h2.n; ++j)
+                sg[j] = ((h2.t[j] + h2.u[j] + h2.v[j]) % 2) ? -1.0 : 1.0;
+        }
+        return sg.data();
+    }
+};
+
+void unpack_shells(int n_shell, const int *l, const int *nprim,
+                   const int *prim_off, const double *exps,
+                   const double *coefs, const double *centers,
+                   const int *ao_off, std::vector<ShellRef> &out) {
+    out.resize(n_shell);
+    for (int i = 0; i < n_shell; ++i) {
+        out[i] = ShellRef{l[i], nprim[i], exps + prim_off[i],
+                          coefs + prim_off[i], centers + 3 * i, ao_off[i]};
+    }
+}
+
+}  // namespace
+
+extern "C" {
+
+/* Full (mu nu | la si) cartesian ERI with 8-fold symmetry scatter.
+ * out: [nao^4] zero-initialized by the caller.                        */
+void eri_full_cart(int n_shell, const int *l, const int *nprim,
+                   const int *prim_off, const double *exps,
+                   const double *coefs, const double *centers,
+                   const int *ao_off, int nao, double screen_thresh,
+                   double *out) {
+    Engine eng;
+    unpack_shells(n_shell, l, nprim, prim_off, exps, coefs, centers, ao_off,
+                  eng.shells);
+    int lmax = 0;
+    for (auto &s : eng.shells) lmax = std::max(lmax, s.l);
+    eng.init_h(4 * lmax);
+
+    // bra pairs i >= j
+    std::vector<std::pair<int, int>> plist;
+    for (int i = 0; i < n_shell; ++i)
+        for (int j = 0; j <= i; ++j) plist.push_back({i, j});
+    const int npair = (int)plist.size();
+    eng.pairs.resize(npair);
+#pragma omp parallel for schedule(dynamic)
+    for (int ip = 0; ip < npair; ++ip) {
+        auto [i, j] = plist[ip];
+        build_pair(eng.shells[i], eng.shells[j],
+                   eng.hi(eng.shells[i].l + eng.shells[j].l),
+                   eng.pairs[ip]);
+    }
+    // make cmap/sgn tables single-threaded before the parallel region
+    for (int ip = 0; ip < npair; ++ip)
+        for (int jp = 0; jp <= ip; ++jp) {
+            eng.cmap(eng.pairs[ip].Lx, eng.pairs[jp].Lx);
+            eng.sgn(eng.pairs[jp].Lx);
+        }
+    // Schwarz diagonals
+    {
+        int maxn = 0, maxT = 0;
+        for (auto &p : eng.pairs) {
+            maxn = std::max(maxn, p.nab);
+            maxT = std::max(maxT, p.nT);
+        }
+        const int hallmax = eng.hi(4 * lmax).n;
+        std::vector<double> buf((size_t)maxn * maxn),
+            scratch(3 * (size_t)hallmax + (size_t)maxn * maxT);
+#pragma omp parallel for schedule(dynamic) firstprivate(buf, scratch)
+        for (int ip = 0; ip < npair; ++ip) {
+            PairData &p = eng.pairs[ip];
+            quartet(p, p, eng.hi(p.Lx), eng.hi(p.Lx), eng.hi(2 * p.Lx),
+                    eng.cmap(p.Lx, p.Lx), eng.sgn(p.Lx), buf.data(),
+                    scratch.data());
+            double m = 0.0;
+            for (int ab = 0; ab < p.nab; ++ab)
+                m = std::max(m, std::fabs(buf[ab * p.nab + ab]));
+            p.schwarz = std::sqrt(m);
+        }
+    }
+    const size_t n1 = nao, n2 = n1 * n1, n3 = n2 * n1;
+#pragma omp parallel
+    {
+        int maxn = 0, maxT = 0;
+        for (auto &p : eng.pairs) {
+            maxn = std::max(maxn, p.nab);
+            maxT = std::max(maxT, p.nT);
+        }
+        std::vector<double> buf((size_t)maxn * maxn),
+            scratch(3 * (size_t)eng.hi(4 * lmax).n + (size_t)maxn * maxT);
+#pragma omp for schedule(dynamic)
+        for (int ip = 0; ip < npair; ++ip) {
+            PairData &pb = eng.pairs[ip];
+            const int na = ncart(pb.la), nb = ncart(pb.lb);
+            for (int jp = 0; jp <= ip; ++jp) {
+                PairData &pk = eng.pairs[jp];
+                if (pb.schwarz * pk.schwarz <= screen_thresh) continue;
+                quartet(pb, pk, eng.hi(pb.Lx), eng.hi(pk.Lx),
+                        eng.hi(pb.Lx + pk.Lx), eng.cmap(pb.Lx, pk.Lx),
+                        eng.sgn(pk.Lx), buf.data(), scratch.data());
+                const int nc = ncart(pk.la), nd = ncart(pk.lb);
+                for (int a = 0; a < na; ++a)
+                    for (int b_ = 0; b_ < nb; ++b_)
+                        for (int c = 0; c < nc; ++c)
+                            for (int d = 0; d < nd; ++d) {
+                                const double v =
+                                    buf[(a * nb + b_) * nc * nd + c * nd + d];
+                                const size_t i_ = pb.ao_a + a,
+                                             j_ = pb.ao_b + b_,
+                                             k_ = pk.ao_a + c,
+                                             l_ = pk.ao_b + d;
+                                out[i_ * n3 + j_ * n2 + k_ * n1 + l_] = v;
+                                out[j_ * n3 + i_ * n2 + k_ * n1 + l_] = v;
+                                out[i_ * n3 + j_ * n2 + l_ * n1 + k_] = v;
+                                out[j_ * n3 + i_ * n2 + l_ * n1 + k_] = v;
+                                out[k_ * n3 + l_ * n2 + i_ * n1 + j_] = v;
+                                out[l_ * n3 + k_ * n2 + i_ * n1 + j_] = v;
+                                out[k_ * n3 + l_ * n2 + j_ * n1 + i_] = v;
+                                out[l_ * n3 + k_ * n2 + j_ * n1 + i_] = v;
+                            }
+            }
+        }
+    }
+}
+
+/* (mu nu | P): out [nao, nao, naux] cartesian.  Aux shells enter as
+ * (shell, unit s with exponent 0) pairs, reducing to the 4c path.      */
+void int3c2e_cart(int n_shell, const int *l, const int *nprim,
+                  const int *prim_off, const double *exps,
+                  const double *coefs, const double *centers,
+                  const int *ao_off, int nao, int n_aux, const int *l_aux,
+                  const int *nprim_aux, const int *prim_off_aux,
+                  const double *exps_aux, const double *coefs_aux,
+                  const double *centers_aux, const int *ao_off_aux,
+                  int naux, double *out) {
+    Engine eng;
+    unpack_shells(n_shell, l, nprim, prim_off, exps, coefs, centers, ao_off,
+                  eng.shells);
+    std::vector<ShellRef> aux;
+    unpack_shells(n_aux, l_aux, nprim_aux, prim_off_aux, exps_aux, coefs_aux,
+                  centers_aux, ao_off_aux, aux);
+    int lmax = 0;
+    for (auto &s : eng.shells) lmax = std::max(lmax, s.l);
+    int lmax_aux = 0;
+    for (auto &s : aux) lmax_aux = std::max(lmax_aux, s.l);
+    eng.init_h(2 * lmax + lmax_aux);
+
+    std::vector<std::pair<int, int>> plist;
+    for (int i = 0; i < n_shell; ++i)
+        for (int j = 0; j <= i; ++j) plist.push_back({i, j});
+    const int npair = (int)plist.size();
+    eng.pairs.resize(npair);
+#pragma omp parallel for schedule(dynamic)
+    for (int ip = 0; ip < npair; ++ip) {
+        auto [i, j] = plist[ip];
+        build_pair(eng.shells[i], eng.shells[j],
+                   eng.hi(eng.shells[i].l + eng.shells[j].l),
+                   eng.pairs[ip]);
+    }
+    // aux pairs: (aux shell, dummy s exp 0)
+    const double zero_exp = 0.0, unit_coef = 1.0;
+    std::vector<PairData> apairs(n_aux);
+#pragma omp parallel for schedule(dynamic)
+    for (int ia = 0; ia < n_aux; ++ia) {
+        ShellRef dummy{0, 1, &zero_exp, &unit_coef, aux[ia].center, 0};
+        build_pair(aux[ia], dummy, eng.hi(aux[ia].l), apairs[ia]);
+    }
+    for (int ip = 0; ip < npair; ++ip)
+        for (int ia = 0; ia < n_aux; ++ia) {
+            eng.cmap(eng.pairs[ip].Lx, apairs[ia].Lx);
+            eng.sgn(apairs[ia].Lx);
+        }
+    const size_t n1 = naux, n2 = (size_t)nao * naux;
+#pragma omp parallel
+    {
+        int maxn = 0, maxT = 0, maxc = 0, maxTa = 0;
+        for (auto &p : eng.pairs) {
+            maxn = std::max(maxn, p.nab);
+            maxT = std::max(maxT, p.nT);
+        }
+        for (auto &p : apairs) {
+            maxc = std::max(maxc, p.nab);
+            maxTa = std::max(maxTa, p.nT);
+        }
+        std::vector<double> buf((size_t)maxn * maxc),
+            scratch(3 * (size_t)eng.hi(2 * lmax + lmax_aux).n
+                    + (size_t)maxc * maxT);
+#pragma omp for schedule(dynamic)
+        for (int ip = 0; ip < npair; ++ip) {
+            PairData &pb = eng.pairs[ip];
+            const int na = ncart(pb.la), nb = ncart(pb.lb);
+            for (int ia = 0; ia < n_aux; ++ia) {
+                PairData &pk = apairs[ia];
+                quartet(pb, pk, eng.hi(pb.Lx), eng.hi(pk.Lx),
+                        eng.hi(pb.Lx + pk.Lx), eng.cmap(pb.Lx, pk.Lx),
+                        eng.sgn(pk.Lx), buf.data(), scratch.data());
+                const int nc = ncart(pk.la);
+                for (int a = 0; a < na; ++a)
+                    for (int b_ = 0; b_ < nb; ++b_)
+                        for (int c = 0; c < nc; ++c) {
+                            const double v = buf[(a * nb + b_) * nc + c];
+                            const size_t i_ = pb.ao_a + a,
+                                         j_ = pb.ao_b + b_,
+                                         k_ = pk.ao_a + c;
+                            out[i_ * n2 + j_ * n1 + k_] = v;
+                            out[j_ * n2 + i_ * n1 + k_] = v;
+                        }
+            }
+        }
+    }
+}
+
+/* (P|Q) Coulomb metric: out [naux, naux] cartesian. */
+void int2c2e_cart(int n_aux, const int *l_aux, const int *nprim_aux,
+                  const int *prim_off_aux, const double *exps_aux,
+                  const double *coefs_aux, const double *centers_aux,
+                  const int *ao_off_aux, int naux, double *out) {
+    Engine eng;
+    std::vector<ShellRef> aux;
+    unpack_shells(n_aux, l_aux, nprim_aux, prim_off_aux, exps_aux, coefs_aux,
+                  centers_aux, ao_off_aux, aux);
+    int lmax_aux = 0;
+    for (auto &s : aux) lmax_aux = std::max(lmax_aux, s.l);
+    eng.init_h(2 * lmax_aux);
+    const double zero_exp = 0.0, unit_coef = 1.0;
+    std::vector<PairData> apairs(n_aux);
+    for (int ia = 0; ia < n_aux; ++ia) {
+        ShellRef dummy{0, 1, &zero_exp, &unit_coef, aux[ia].center, 0};
+        build_pair(aux[ia], dummy, eng.hi(aux[ia].l), apairs[ia]);
+    }
+    for (int ia = 0; ia < n_aux; ++ia)
+        for (int ja = 0; ja < n_aux; ++ja) {
+            eng.cmap(apairs[ia].Lx, apairs[ja].Lx);
+            eng.sgn(apairs[ja].Lx);
+        }
+#pragma omp parallel
+    {
+        int maxc = 0, maxT = 0;
+        for (auto &p : apairs) {
+            maxc = std::max(maxc, p.nab);
+            maxT = std::max(maxT, p.nT);
+        }
+        std::vector<double> buf((size_t)maxc * maxc),
+            scratch(3 * (size_t)eng.hi(2 * lmax_aux).n
+                    + (size_t)maxc * maxT);
+#pragma omp for schedule(dynamic)
+        for (int ia = 0; ia < n_aux; ++ia) {
+            PairData &pb = apairs[ia];
+            const int na = ncart(pb.la);
+            for (int ja = 0; ja <= ia; ++ja) {
+                PairData &pk = apairs[ja];
+                quartet(pb, pk, eng.hi(pb.Lx), eng.hi(pk.Lx),
+                        eng.hi(pb.Lx + pk.Lx), eng.cmap(pb.Lx, pk.Lx),
+                        eng.sgn(pk.Lx), buf.data(), scratch.data());
+                const int nc = ncart(pk.la);
+                for (int a = 0; a < na; ++a)
+                    for (int c = 0; c < nc; ++c) {
+                        const double v = buf[a * nc + c];
+                        out[(size_t)(pb.ao_a + a) * naux + pk.ao_a + c] = v;
+                        out[(size_t)(pk.ao_a + c) * naux + pb.ao_a + a] = v;
+                    }
+            }
+        }
+    }
+}
+
+}  // extern "C"

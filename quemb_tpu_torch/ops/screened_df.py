@@ -247,14 +247,19 @@ class ScreenedDFFactor:
     """The DF factor held once on the device in f32 for the screened
     transform (counterpart of ``PallasDFFactor``).
 
-    Built from the f64 host factor [naux, nao, nao]; kept in its natural
-    layout, with no transpose and no padding.
+    Built from the factor [naux, nao, nao], a host array (rounded to f32
+    before the upload) or a tensor (rounded on ``device``); kept in its
+    natural layout, with no transpose and no padding.
     """
 
-    def __init__(self, B: np.ndarray, device: torch.device):
-        self.B32 = torch.as_tensor(
-            np.ascontiguousarray(np.asarray(B, np.float32)), device=device
-        )
+    def __init__(self, B, device: torch.device):
+        if isinstance(B, torch.Tensor):
+            self.B32 = B.to(device=device, dtype=torch.float32).contiguous()
+        else:
+            self.B32 = torch.as_tensor(
+                np.ascontiguousarray(np.asarray(B, np.float32)),
+                device=device,
+            )
 
     def first_transform(self, TA: np.ndarray, reach: np.ndarray):
         """Device f32 [naux, nao, nemb] half transform of ``TA``."""

@@ -26,7 +26,14 @@ from quemb_tpu_torch.solvers.ccsd import DIIS_SPACE, _default_conv_tol, \
 from quemb_tpu_torch.solvers.rccsd_mat import rccsd_fused_blocks, \
     rccsd_update_mat
 
-MAX_CYCLE = 150
+MAX_CYCLE = 150  # the JAX function's default ``max_cycle``
+
+
+def _max_cycle() -> int:
+    """Iteration cap (env ``QUEMB_TPU_CCSD_MAX_CYCLE``, default 150): the
+    JAX function's ``max_cycle`` argument.  Small-gap fragments (the
+    strained model chain of ``utils.geometry.alkane_atoms``) need more."""
+    return int(os.environ.get("QUEMB_TPU_CCSD_MAX_CYCLE", MAX_CYCLE))
 
 
 def _rdiis_stage(fb, moe_o, moe_v, t1_0, T2p_0, conv_tol):
@@ -47,8 +54,9 @@ def _rdiis_stage(fb, moe_o, moe_v, t1_0, T2p_0, conv_tol):
     amp2 = torch.zeros((nf, m, no * no, nv * nv), dtype=dtype, device=dev)
     it = torch.zeros(nf, dtype=torch.long, device=dev)
     delta = torch.full((nf,), float("inf"), dtype=torch.float64, device=dev)
+    max_cycle = _max_cycle()
     while True:
-        active = (delta > conv_tol) & (it < MAX_CYCLE)
+        active = (delta > conv_tol) & (it < max_cycle)
         if not bool(active.any()):
             break
         t1n, T2n, _ = rccsd_update_mat(t1, T2p, moe_o, moe_v, fb)

@@ -10,11 +10,17 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = (
     "quemb_tpu_torch",
     "quemb_tpu_torch.api",
+    "quemb_tpu_torch.config",
+    "quemb_tpu_torch.chem.integrals",
+    "quemb_tpu_torch.chem.mole",
     "quemb_tpu_torch.chem.scf",
+    "quemb_tpu_torch.chem.sph",
     "quemb_tpu_torch.matching.beopt",
     "quemb_tpu_torch.matching.cphf",
     "quemb_tpu_torch.matching.numerical_jac",
     "quemb_tpu_torch.matching.optqn",
+    "quemb_tpu_torch.native",
+    "quemb_tpu_torch.native.eri_native",
     "quemb_tpu_torch.ops.df",
     "quemb_tpu_torch.ops.eri_transform",
     "quemb_tpu_torch.ops.screened_df",
@@ -22,7 +28,41 @@ MODULES = (
     "quemb_tpu_torch.solvers.dispatch",
     "quemb_tpu_torch.solvers.fci",
     "quemb_tpu_torch.solvers.mp2",
+    "quemb_tpu_torch.utils.device",
+    "quemb_tpu_torch.utils.geometry",
 )
+
+
+def _walk():
+    """Every module of the port, from its files."""
+    pkg = os.path.join(ROOT, "quemb_tpu_torch")
+    for base, _, files in os.walk(pkg):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(base, f), ROOT)[:-3]
+                parts = rel.split(os.sep)
+                if parts[-1] == "__init__":
+                    parts.pop()
+                yield ".".join(parts), os.path.join(base, f)
+
+
+def test_every_module_is_listed_and_names_no_jax():
+    """The list above covers the new host modules, and no source file of
+    the port (nor chip_smoke.py) imports jax or the JAX package."""
+    import re
+
+    walked = dict(_walk())
+    assert set(MODULES) <= set(walked)
+    for m in ("native", "native.eri_native", "config", "utils.geometry",
+              "chem.integrals", "chem.sph"):
+        assert f"quemb_tpu_torch.{m}" in MODULES
+    bad = re.compile(
+        r"^\s*(import|from)\s+(jax|quemb_tpu)(\.|\s|$)", re.MULTILINE
+    )
+    walked["chip_smoke"] = os.path.join(ROOT, "chip_smoke.py")
+    for name, path in walked.items():
+        with open(path) as fh:
+            assert not bad.search(fh.read()), name
 
 
 def test_port_imports_without_jax():
@@ -31,7 +71,7 @@ def test_port_imports_without_jax():
         "sys.modules['jax'] = None\n"
         "sys.modules['quemb_tpu'] = None\n"
         "import importlib\n"
-        f"for m in {MODULES!r}:\n"
+        f"for m in {tuple(m for m, _ in _walk())!r}:\n"
         "    importlib.import_module(m)\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'quemb_tpu.'))\n"
         "               for k in sys.modules if sys.modules[k] is not None)\n"

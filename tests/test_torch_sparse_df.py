@@ -5,7 +5,8 @@ JAX package, the pivoted-Cholesky factor of its ERI, and the Schmidt bases
 of a BE2 chemgen fragmentation go through
 ``quemb_tpu.ops.sparse_df.SparseDF.fragment_eri_f32`` (Pallas kernel in
 interpret mode) and the port's counterpart (plain torch on the CPU).  The
-ERIs agree to 1e-5 x max|eri| (f32 arithmetic in both).
+ERIs agree to 1e-5 x max|eri| (f32 arithmetic in both).  The f64 tiers are
+held in ``tests/test_torch_df.py``.
 """
 
 import numpy as np
@@ -83,14 +84,25 @@ def test_f32_fragment_eri_matches_jax(h8, ifrag):
 
 @pytest.mark.parametrize("what", ["f64-tier", "auxbasis", "constructor"])
 def test_unported_sparse_df_paths_raise(h8, monkeypatch, what):
+    """The sparse-DF paths that used to raise are ported; each case runs
+    its path and checks what still raises beside it: ECPs (ROADMAP A11),
+    an unknown auxiliary-basis spec, an unknown tier."""
     jmol, mol, mf, B, TAs = h8
     monkeypatch.delenv("QUEMB_TPU_CCSD_F32_ONLY", raising=False)
-    with pytest.raises(NotImplementedError):
-        if what == "f64-tier":
-            qt.BE(mf, qt.fragmentate(mol, n_BE=2, print_frags=False),
-                  int_transform="sparse-DF", auxbasis="cholesky",
-                  device="cpu")
-        elif what == "auxbasis":
-            tdf.resolve_auxbasis(mol, "etb:2.0")
-        else:
-            SparseDF(mol)
+    if what == "f64-tier":
+        be = qt.BE(mf, qt.fragmentate(mol, n_BE=2, print_frags=False),
+                   int_transform="sparse-DF", auxbasis="cholesky",
+                   device="cpu")
+        assert abs(be.ebe_hf - mf.e_tot) < 1e-6
+        with pytest.raises(NotImplementedError, match="A11, ECP"):
+            Mole(atom=ATOM, basis="sto-3g", ecp={"H": "none"})
+    elif what == "auxbasis":
+        kind, aux = tdf.resolve_auxbasis(mol, "etb:2.0")
+        assert kind == "mol" and aux.nao > mol.nao
+        with pytest.raises(ValueError):
+            tdf.resolve_auxbasis(mol, "no-such-set")
+    else:
+        sdf = SparseDF(mol, device="cpu")
+        assert sdf.tier == "f64" and sdf.naux == sdf.dft.B.shape[0]
+        with pytest.raises(ValueError):
+            SparseDF(mol, tier="f16", device="cpu")

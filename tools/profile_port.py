@@ -1,9 +1,12 @@
-"""Profile the PyTorch/CUDA port at octane on one NVIDIA card.
+"""Profile the PyTorch/CUDA port at octane and on the C40H82 chain, on one
+NVIDIA card.
 
     python3 tools/profile_port.py [--parts NAME[,NAME...]] [--trace PATH]
+        [--chain-runs N] [--identify-aux] [--chain-optimize]
 
-Four parts (all of them unless ``--parts`` names some), printed as JSON
-lines (plus the profiler tables):
+Four octane parts (run unless ``--parts`` names others) and the part
+``chain`` (run only when named), printed as JSON lines (plus the profiler
+tables):
 
 - ``kernel``: the screened first transform, one line a case: octane
   fragment 0 (the octane Cholesky factor, naux 777, nao 58) and the
@@ -43,7 +46,23 @@ lines (plus the profiler tables):
   synchronisations, which the plain run does not have), with the matched
   energies and their distance from the reference's.  Three such runs: at
   CCSD tolerance 1e-6, at 1e-8, and on the f32 tier (sparse-DF with the
-  screened-DF kernel, f32 amplitudes) with at most 10 quasi-Newton steps.
+  screened-DF kernel, f32 amplitudes) with at most 10 quasi-Newton steps;
+- ``chain``: the density-fitted C40H82 path of ``chip_smoke.py`` phases
+  7-8 (nao 282, ``etb:6.0``, naux 3460, 38 BE2 fragments).  The factor and
+  the DF-RHF once (the phase-7 line); then ``--chain-runs`` (default 3)
+  repeats of phase 8, one line each: the walls of the band gather, the
+  banded ``transform_all`` and the dense ``df_transform_batched``, and the
+  kernel's device time at every fragment's real reach, grouped by kept
+  blocks, beside the plain version's, ``torch.matmul``'s and the bound.
+  Then the f64 banded transform's split over one equal-nemb bucket: host
+  preparation, the folded first GEMM, and per fragment the strided slice
+  copy, the second (transposed) GEMM and the Gram product, each timed to a
+  synchronisation, with their FLOP rates.  ``--identify-aux`` also builds
+  the default even-tempered factor (naux 8740, 5.6 GB, minutes on the
+  host) and prints the energy of the fixture's density under it beside the
+  fixture's ``e_tot``.  ``--chain-optimize`` also runs
+  ``BE.optimize(solver="CCSD")`` on the f64 sparse-DF route and prints its
+  Jacobian and matching walls and the matched energies.
 
 Device time is summed over the profiler's device events (kernels, copies,
 memsets) without its own buffer events; an operator's row in
@@ -610,14 +629,145 @@ def profile_matching(mf, fobj, card):
         del os.environ["QUEMB_TPU_CCSD_F32_ONLY"]
 
 
-PARTS = ("kernel", "kernel_parts", "objective", "matching")
+def profile_chain(card, runs, identify_aux, chain_optimize):
+    import quemb_tpu_torch as qt
+    from chip_smoke import (
+        C40_AUX, C40_CCSD_CONV_TOL, C40_CCSD_MAX_CYCLE, C40_FIXTURE,
+        FLUSH_BYTES, chain_mean_field, chain_transforms, wall,
+    )
+    from quemb_tpu_torch.ops import screened_df as sd
+    from quemb_tpu_torch.ops import sparse_df as tsdf
+
+    cuda = torch.device("cuda")
+    sd.build_library()
+    mol, mf = chain_mean_field(card)
+    fobj = qt.fragmentate(mol, n_BE=2, frag_type="chemgen",
+                          print_frags=False)
+    flush = torch.zeros(FLUSH_BYTES // 4, dtype=torch.float32, device=cuda)
+    for _ in range(runs):
+        chain_transforms(sd, mol, mf, fobj, flush, card)
+    del flush
+
+    # the f64 banded transform's split, over the largest equal-nemb bucket
+    TAs = fragment_bases(mf, fobj)
+    nemb = max({TA.shape[1] for TA in TAs},
+               key=lambda n: sum(TA.shape[1] == n for TA in TAs))
+    bucket = [TA for TA in TAs if TA.shape[1] == nemb]
+    sdf = tsdf.SparseDF.from_factor(mol, mf.get_df_B(), device=cuda)
+    sdf._ensure_banded_factor()
+    Bk = sdf._Bk_dev
+    nblk, xdim, W = Bk.shape
+    b = sdf._band_plan()[2]
+    naux, F = xdim // b, len(bucket)
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        TAb_all, TAps_pad = sdf._banded_host_prep(bucket)
+        torch.cuda.synchronize()
+        prep_s = time.perf_counter() - t0
+        T, first_s = wall(lambda: tsdf._banded_first(Bk, TAb_all))
+        copy_s = second_s = gram_s = 0.0
+        for f in range(F):
+            Tf, dt = wall(lambda: T[:, :, f * nemb:(f + 1) * nemb].reshape(
+                nblk * b, naux * nemb))
+            copy_s += dt
+            Bij, dt = wall(lambda: (Tf.T @ TAps_pad[f]).reshape(
+                naux, nemb, nemb))
+            second_s += dt
+            Bij = 0.5 * (Bij + Bij.transpose(1, 2))
+            Bf = Bij.reshape(naux, nemb * nemb)
+            _, dt = wall(lambda: Bf.T @ Bf)
+            gram_s += dt
+        flop = dict(first=2.0 * nblk * xdim * W * F * nemb,
+                    second=2.0 * F * naux * nemb * nblk * b * nemb,
+                    gram=2.0 * F * naux * nemb ** 4)
+        print(json.dumps({
+            "part": "chain", "what": "banded_split", "card": card,
+            "nemb": nemb, "fragments": F, "host_prep_s": prep_s,
+            "first_gemm_s": first_s, "slice_copy_s": copy_s,
+            "second_gemm_s": second_s, "gram_s": gram_s,
+            "half_transform_gb": T.numel() * 8 / 1e9,
+            "first_tflops": flop["first"] / first_s / 1e12,
+            "second_tflops": flop["second"] / second_s / 1e12,
+            "gram_tflops": flop["gram"] / gram_s / 1e12,
+        }), flush=True)
+        del T, Tf, Bij, Bf
+    del sdf, Bk
+    torch.cuda.empty_cache()
+
+    if identify_aux:
+        from quemb_tpu_torch.chem.scf import RHF
+
+        with np.load(C40_FIXTURE) as d:
+            e_fix, C_fix, veff_fix = float(d["e_tot"]), d["C"], d["veff"]
+        nocc = mol.nelectron // 2
+        dm_fix = 2.0 * C_fix[:, :nocc] @ C_fix[:, :nocc].T
+        mf_def = RHF(mol, with_df=True, auxbasis=None, device=cuda)
+        mf_def._hcore, mf_def._S = mf.get_hcore(), mf.get_ovlp()
+        B, factor_s = wall(mf_def.get_df_B)
+        e = mf_def.energy_tot(dm_fix)
+        print(json.dumps({
+            "part": "chain", "what": "identify_aux", "card": card,
+            "auxbasis": "default etb (beta 1.8)", "naux": int(B.shape[0]),
+            "factor_s": factor_s, "e_of_fixture_density": e,
+            "minus_fixture_e_tot": e - e_fix,
+            "veff_max_dist": float(np.abs(
+                mf_def.get_veff(dm_fix) - veff_fix).max()),
+        }), flush=True)
+
+    if chain_optimize:
+        os.environ["QUEMB_TPU_CCSD_CONV_TOL"] = C40_CCSD_CONV_TOL
+        os.environ["QUEMB_TPU_CCSD_MAX_CYCLE"] = C40_CCSD_MAX_CYCLE
+        be, init_s = wall(lambda: qt.BE(
+            mf, fobj, int_transform="sparse-DF", auxbasis=C40_AUX,
+            device=cuda))
+        _, oneshot_s = wall(lambda: be.oneshot("CCSD"))
+        ecorr0 = be.ebe_tot - be.ebe_hf
+        J, jac_s = wall(lambda: be.get_be_error_jacobian("HF"))
+        print(json.dumps({
+            "part": "chain", "what": "before_optimize", "card": card,
+            "n_frag": fobj.n_frag, "potentials": len(be.pot),
+            "init_s": init_s, "oneshot_s": oneshot_s,
+            "oneshot_ecorr": ecorr0, "jacobian_s": jac_s,
+            "jacobian_shape": list(J.shape),
+            "jacobian_finite": bool(np.all(np.isfinite(J))),
+        }), flush=True)
+        # reported, not gated: no matched energy of record exists for the
+        # chain, so a solver failure is printed and the part goes on
+        try:
+            _, opt_s = wall(lambda: be.optimize(solver="CCSD"))
+        except RuntimeError as exc:  # torch.linalg.LinAlgError is one
+            print(json.dumps({
+                "part": "chain", "what": "optimize", "card": card,
+                "failed": f"{type(exc).__name__}: {str(exc)[:300]}",
+            }), flush=True)
+        else:
+            print(json.dumps({
+                "part": "chain", "what": "optimize", "card": card,
+                "optimize_s": opt_s, "etot": be.ebe_tot,
+                "ecorr": be.ebe_tot - be.ebe_hf,
+            }), flush=True)
+        del be, J
+        torch.cuda.empty_cache()
+
+
+OCTANE_PARTS = ("kernel", "kernel_parts", "objective", "matching")
+PARTS = (*OCTANE_PARTS, "chain")
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", help="write the objective's Chrome trace")
-    ap.add_argument("--parts", default=",".join(PARTS),
-                    help="comma-separated parts to run (default: all)")
+    ap.add_argument("--parts", default=",".join(OCTANE_PARTS),
+                    help="comma-separated parts to run (default: the"
+                    " octane parts)")
+    ap.add_argument("--chain-runs", type=int, default=3,
+                    help="repeats of the chain part's timed sections")
+    ap.add_argument("--identify-aux", action="store_true",
+                    help="chain: energy of the fixture's density under the"
+                    " default auxiliary basis")
+    ap.add_argument("--chain-optimize", action="store_true",
+                    help="chain: density matching on the f64 sparse-DF"
+                    " route")
     args = ap.parse_args()
     parts = args.parts.split(",")
     if not set(parts) <= set(PARTS):
@@ -640,6 +790,9 @@ def main():
         profile_objective(mf, fobj, card, args.trace)
     if "matching" in parts:
         profile_matching(mf, fobj, card)
+    if "chain" in parts:
+        profile_chain(card, args.chain_runs, args.identify_aux,
+                      args.chain_optimize)
 
 
 if __name__ == "__main__":

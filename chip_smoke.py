@@ -3,11 +3,12 @@
     python3 chip_smoke.py
 
 Drives ``quemb_tpu_torch`` (and nothing of JAX) through octane (C8H18,
-STO-3G) BE2-CCSD from the committed RHF fixture, and through the
+STO-3G) BE2-CCSD from the committed RHF fixture, through the
 density-fitted long chain C40H82 (STO-3G, nao 282, ``etb:6.0``, naux 3460,
-38 BE2 fragments) from integrals and a factor the port builds itself, in
-phases; each prints one line, and any failure raises (non-zero exit, no
-``ok`` line):
+38 BE2 fragments) from integrals and a factor the port builds itself, and
+through the rest of the restricted driver (frozen core, IAO+PAO, the
+large-fragment path, full-basis RDMs, restart, SCI), in phases; each
+prints one line, and any failure raises (non-zero exit, no ``ok`` line):
 
 0. the device: CUDA name, and ``nvidia-smi`` name and power limit;
 1. build the screened-DF CUDA kernel from ``quemb_tpu_torch/csrc``;
@@ -46,9 +47,28 @@ phases; each prints one line, and any failure raises (non-zero exit, no
    and ``"int-direct-DF"`` on the same auxiliary basis, HF-in-HF of each
    < 1e-5 Ha, one-shot BE2-CCSD E_corr within 1e-6 Ha of each other; then
    the f32 tier (38 launches, its HF-in-HF and E_corr beside the f64
-   values, within the bars below).
+   values, within the bars below);
+10. octane with a frozen core (``fragmentate(..., frozen_core=True)``) on
+    the f64 route, CCSD tolerance 1e-6: HF-in-HF < 1e-6 Ha, the HF
+    Jacobian, ``optimize`` to E_tot within 1e-6 Ha of the reference's
+    -310.3311676424482, ``rdm1_fullbasis`` (tr(rdm1 S) = 50 valence
+    electrons within 1e-5), ``compute_energy_full`` in both modes (the
+    approximate one within ``np.isclose`` of the same E_tot), and
+    ``save`` -> ``from_restart_file`` (``ebe_hf`` equal to 1e-10), with
+    the walls;
+11. hexene (6-31G, 78 AOs) as ``examples/molbe_hexene_iaos.py`` runs it:
+    the port's ``RHF`` (within 1e-8 Ha of the JAX package's
+    -234.0731117673), IAO+PAO on STO-3G with a frozen core, one-shot
+    BE2-CCSD at tolerance 1e-9: HF-in-HF < 1e-6 Ha, ``E_core`` within
+    1e-8 Ha and E_corr within 1e-7 Ha of the JAX package's; the fragments
+    of nemb 50, 51 and 54 must go through ``_solve_bucket_large``; then
+    those three once more through each path, the batched one padded to
+    one shape: E_corr within 1e-8 Ha, walls and peak device memory;
+12. H8 BE1 chemical-potential matching with ``solver="SCI"`` within
+    1e-6 Ha of ``"FCI"``.
 
-The last lines are the kernel report (JSON), the card's name and power
+No phase from 10 on reaches the kernel (their launch counts are printed
+and are 0).  The last lines are the kernel report (JSON), the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -74,6 +94,16 @@ ECORR_REF = -0.5499458109
 ETOT_MATCHED_REF = -310.3347211309688
 ECORR_MATCHED_REF = -0.5499514850769742
 MATCHED_TOL = 1e-6  # Ha, on both
+#: matched octane BE2-CCSD energy with a frozen core (BASELINE.md;
+#: tests/test_molbe_octane.py:test_octane_be2_frozen_core_rdms)
+ETOT_FROZEN_CORE_REF = -310.3311676424482
+#: hexene (6-31G) through examples/molbe_hexene_iaos.py: the JAX package's
+#: RHF at conv_tol 1e-12, E_core and one-shot BE2-CCSD E_corr with IAO+PAO
+#: on STO-3G and a frozen core, CCSD tolerance 1e-9 (CPU run)
+HEXENE_XYZ = os.path.join(HERE, "tests", "data", "xyz", "hexene.xyz")
+HEXENE_EHF_REF = -234.0731117673
+HEXENE_ECORE_REF = -292.8440746716
+HEXENE_ECORR_REF = -0.6170357576
 #: kernel against plain version, relative to max|plain|: the kernel sums
 #: 3xTF32 products (FP32 to about 1e-6 relative), the plain version FP32
 #: products, in different orders
@@ -113,8 +143,9 @@ SPARSE_VS_DENSE_TOL = 1e-6  # Ha, f64 sparse-DF against int-direct-DF
 #: 1e-5 per MO, but every fragment's bath reaches all 18 blocks of the
 #: chain, so nothing is skipped and what remains is f32 rounding: on the
 #: first run on the card its ERIs were 1.5e-7 to 5.8e-7 (relative) from
-#: the dense f64 ones, its HF-in-HF equal to the f64 routes' to 5e-8 Ha and
-#: its E_corr 1.0e-6 Ha from the f64 value.
+#: the dense f64 ones and its HF-in-HF equal to the f64 routes' to 5e-8 Ha;
+#: its E_corr lies 1e-6 to 1e-5 Ha from the f64 value: the chain's fragment
+#: SCFs stop at their cycle cap, and where they stop moves that difference.
 C40_F32_HF_TOL = 1e-4
 C40_F32_ECORR_TOL = 1e-4
 #: CCSD on the chain's f64 routes: its model geometry is strained (HOMO-
@@ -355,7 +386,7 @@ def chain_transforms(sd, mol, mf, fobj, flush, card):
     Bv = B32.view(naux * nao, nao)
     kept, kernel_err, kernel_scale = [], 0.0, 0.0
     total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                 cold_ms=0.0)
+                 cold_ms=0.0, plain_cold_ms=0.0, library_cold_ms=0.0)
     per_fragment = []
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -375,9 +406,9 @@ def chain_transforms(sd, mol, mf, fobj, flush, card):
             t = {k: float(np.median([device_ms(fn, CHAIN_CALLS)
                                      for _ in range(CHAIN_TIMINGS)]))
                  for k, fn in versions.items()}
-            t["cold_ms"] = float(np.median(
-                [device_ms(versions["ms"], 1, flush)
-                 for _ in range(CHAIN_TIMINGS)]))
+            for k, fn in versions.items():
+                t[k.replace("ms", "cold_ms")] = float(np.median(
+                    [device_ms(fn, 1, flush) for _ in range(CHAIN_TIMINGS)]))
             t["bound_ms"] = call_bound(sd, naux, nao, TA32.shape[1],
                                        reach)["bound_ms"]
             t["kept"] = int(sd.kept_blocks(reach).size)
@@ -402,7 +433,8 @@ def chain_transforms(sd, mol, mf, fobj, flush, card):
     by_kept = {
         k: dict(fragments=len(v), **{
             f: float(np.median([t[f] for t in v]))
-            for f in ("ms", "cold_ms", "plain_ms", "library_ms", "bound_ms")
+            for f in ("ms", "cold_ms", "plain_ms", "plain_cold_ms",
+                      "library_ms", "library_cold_ms", "bound_ms")
         }) for k, v in sorted(by_kept.items())
     }
     phase(8, n_frag=len(TAs), nemb=nembs, band_W=W, band_b=b,
@@ -505,6 +537,188 @@ def chain_energies(qt, sd, mf, fobj, card):
         )
     if not abs(f32_diff) < C40_F32_ECORR_TOL:
         raise AssertionError(f"f32 tier E_corr {f32_diff:.3e} Ha from f64")
+    return launches
+
+
+def octane_frozen_core(qt, sd, mf, fobj, card):
+    """Phase 10: octane BE2-CCSD with a frozen core on the f64 route, from
+    density matching to the full-basis RDMs, their energy and a restart."""
+    import tempfile
+
+    cuda = torch.device("cuda")
+    tol_before = os.environ.get("QUEMB_TPU_CCSD_CONV_TOL")
+    os.environ["QUEMB_TPU_CCSD_CONV_TOL"] = "1e-6"  # as in phase 6
+    sd.LAUNCHES = 0
+    try:
+        be, init_s = wall(lambda: qt.BE(mf, fobj, device=cuda))
+        hf_in_hf = mf.e_tot - be.ebe_hf
+        J, jac_s = wall(lambda: be.get_be_error_jacobian("HF"))
+        _, opt_s = wall(lambda: be.optimize(solver="CCSD"))
+    finally:
+        if tol_before is None:
+            del os.environ["QUEMB_TPU_CCSD_CONV_TOL"]
+        else:
+            os.environ["QUEMB_TPU_CCSD_CONV_TOL"] = tol_before
+    etot = be.ebe_tot
+    (rdm1, rdm2), rdm_s = wall(lambda: be.rdm1_fullbasis(return_ao=True))
+    n_val = float(np.trace(rdm1 @ be.S))
+    _, full_s = wall(lambda: be.compute_energy_full(approx_cumulant=True,
+                                                    return_rdm=False))
+    e_full_approx = be.ebe_tot
+    be.compute_energy_full(approx_cumulant=False, return_rdm=False)
+    e_full_true = be.ebe_tot
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "octane_fc.npz")
+        be.save(path)
+        be2, restart_s = wall(lambda: qt.BE.from_restart_file(
+            mf, fobj, path, device=cuda))
+    launches = sd.LAUNCHES
+    phase(10, n_frag=fobj.n_frag, ncore=be.ncore, e_core=be.E_core,
+          hf_in_hf=hf_in_hf, init_s=init_s, jacobian_s=jac_s,
+          jacobian_shape=list(J.shape), optimize_s=opt_s, etot=etot,
+          etot_dev=etot - ETOT_FROZEN_CORE_REF,
+          valence_electrons=n_val, rdm2_shape=list(rdm2.shape),
+          rdm1_fullbasis_s=rdm_s, compute_energy_full_s=full_s,
+          e_full_approx=e_full_approx,
+          e_full_approx_dev=e_full_approx - ETOT_FROZEN_CORE_REF,
+          e_full_true=e_full_true,
+          e_full_true_dev=e_full_true - ETOT_FROZEN_CORE_REF,
+          restart_s=restart_s, restart_ebe_hf_diff=be2.ebe_hf - be.ebe_hf,
+          kernel_launches=launches, card=card)
+    n_expected = mf.mol.nelectron - 2 * be.ncore
+    if not abs(hf_in_hf) < 1e-6:
+        raise AssertionError(f"frozen-core HF-in-HF {hf_in_hf:.3e} Ha")
+    if not abs(etot - ETOT_FROZEN_CORE_REF) < MATCHED_TOL:
+        raise AssertionError(
+            f"frozen-core matched E_tot {etot:.10f}: |dev| >= {MATCHED_TOL:g}"
+        )
+    if not abs(n_val - n_expected) < 1e-5:
+        raise AssertionError(f"tr(rdm1 S) {n_val:.8f}, not {n_expected}")
+    if not np.isclose(e_full_approx, ETOT_FROZEN_CORE_REF):
+        raise AssertionError(
+            f"compute_energy_full {e_full_approx:.10f} is not close to the"
+            " reference"
+        )
+    if not abs(be2.ebe_hf - be.ebe_hf) < 1e-10:
+        raise AssertionError("the restarted BE's ebe_hf differs")
+    return launches
+
+
+def hexene_iao(qt, sd, card):
+    """Phase 11: hexene 6-31G from the port's own RHF, IAO+PAO on STO-3G
+    with a frozen core, one-shot BE2-CCSD; fragments wider than the
+    batched path's limit go through the large-fragment path, and are then
+    solved once more through the batched path, padded to one shape."""
+    from quemb_tpu_torch.chem.mole import Mole
+    from quemb_tpu_torch.chem.scf import RHF
+    from quemb_tpu_torch.solvers import dispatch
+
+    cuda = torch.device("cuda")
+    mol = Mole.from_xyz_file(HEXENE_XYZ, basis="6-31g")
+    mf = RHF(mol, conv_tol=1e-12, device=cuda)
+    e_hf, scf_s = wall(mf.kernel)
+    fobj = qt.fragmentate(mol, n_BE=2, frag_type="chemgen",
+                          iao_valence_basis="sto-3g", frozen_core=True,
+                          print_frags=False)
+    tol_before = os.environ.get("QUEMB_TPU_CCSD_CONV_TOL")
+    os.environ["QUEMB_TPU_CCSD_CONV_TOL"] = "1e-9"
+    large_inner = dispatch._solve_bucket_large
+    large_nembs = []
+
+    def counted_large(frs, *args, **kwargs):
+        large_nembs.extend(fr.nao for fr in frs)
+        return large_inner(frs, *args, **kwargs)
+
+    dispatch._solve_bucket_large = counted_large
+    sd.LAUNCHES = 0
+    try:
+        be, init_s = wall(lambda: qt.BE(mf, fobj, lo_method="IAO",
+                                        device=cuda))
+        _, oneshot_s = wall(lambda: be.oneshot("CCSD"))
+        ecorr = be.ebe_tot - be.ebe_hf
+        # the wide fragments alone, through each path, on the same state
+        wide = [fr for fr in be.fragments
+                if fr.nao > dispatch._NEMB_BATCHED_MAX]
+        so_t = max(fr.nsocc for fr in wide)
+        nv_t = max(fr.nao - fr.nsocc for fr in wide)
+        pads = tuple((so_t - fr.nsocc, nv_t - fr.nao + fr.nsocc)
+                     for fr in wide)
+        paths = {}
+        for name, solve in (
+            ("large", lambda: large_inner(wide, "CCSD", True, True)),
+            ("batched", lambda: dispatch._solve_bucket_batched(
+                wide, "CCSD", True, True, False, pads=pads)),
+        ):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            e, t = wall(solve)
+            paths[name] = dict(ecorr=sum(e), s=t,
+                               peak_gb=torch.cuda.max_memory_allocated()
+                               / 1e9,
+                               peak_over_held_gb=(
+                                   torch.cuda.max_memory_allocated()
+                                   - base) / 1e9)
+    finally:
+        dispatch._solve_bucket_large = large_inner
+        if tol_before is None:
+            del os.environ["QUEMB_TPU_CCSD_CONV_TOL"]
+        else:
+            os.environ["QUEMB_TPU_CCSD_CONV_TOL"] = tol_before
+    launches = sd.LAUNCHES
+    large_vs_batched = paths["large"]["ecorr"] - paths["batched"]["ecorr"]
+    phase(11, nao=mol.nao, e_hf=e_hf, e_hf_dev=e_hf - HEXENE_EHF_REF,
+          scf_cycles=mf.cycles, scf_s=scf_s, init_s=init_s,
+          fragments=[[fr.nao, fr.nsocc] for fr in be.fragments],
+          e_core=be.E_core, e_core_dev=be.E_core - HEXENE_ECORE_REF,
+          hf_in_hf=mf.e_tot - be.ebe_hf, oneshot_s=oneshot_s, ecorr=ecorr,
+          ecorr_dev=ecorr - HEXENE_ECORR_REF,
+          large_path_fragments=len(large_nembs), large_path_nemb=large_nembs,
+          wide_pads=pads, wide_paths=paths,
+          wide_large_minus_batched_ecorr=large_vs_batched,
+          kernel_launches=launches, card=card)
+    if not abs(e_hf - HEXENE_EHF_REF) < 1e-8:
+        raise AssertionError(f"hexene RHF {e_hf:.10f}")
+    if not abs(mf.e_tot - be.ebe_hf) < 1e-6:
+        raise AssertionError(f"hexene HF-in-HF {mf.e_tot - be.ebe_hf:.3e}")
+    if not abs(be.E_core - HEXENE_ECORE_REF) < 1e-8:
+        raise AssertionError(f"hexene E_core {be.E_core:.10f}")
+    if not abs(ecorr - HEXENE_ECORR_REF) < 1e-7:
+        raise AssertionError(f"hexene E_corr {ecorr:.10f}")
+    if sorted(large_nembs) != [50, 51, 54]:
+        raise AssertionError(f"large-fragment path took {large_nembs}")
+    if not abs(large_vs_batched) < 1e-8:
+        raise AssertionError(
+            f"large - batched E_corr {large_vs_batched:.3e} Ha"
+        )
+    return launches
+
+
+def h8_sci(qt, sd, card):
+    """Phase 12: H8 BE1 chemical-potential matching with the selected CI
+    against FCI (both on the host, the SCF and transforms on the card)."""
+    from quemb_tpu_torch.chem.mole import Mole
+    from quemb_tpu_torch.chem.scf import RHF
+
+    cuda = torch.device("cuda")
+    mol = Mole(atom="; ".join(f"H 0 0 {i * 1.0}" for i in range(8)),
+               basis="sto-3g")
+    mf = RHF(mol, conv_tol=1e-12, device=cuda)
+    mf.kernel()
+    fobj = qt.fragmentate(mol, n_BE=1, frag_type="chemgen",
+                          print_frags=False)
+    sd.LAUNCHES = 0
+    out = {}
+    for solver in ("FCI", "SCI"):
+        be = qt.BE(mf, fobj, device=cuda)
+        _, t = wall(lambda: be.optimize(solver=solver, only_chem=True))
+        out[solver] = dict(etot=be.ebe_tot, s=t)
+    launches = sd.LAUNCHES
+    diff = out["SCI"]["etot"] - out["FCI"]["etot"]
+    phase(12, n_frag=fobj.n_frag, fci=out["FCI"], sci=out["SCI"],
+          sci_minus_fci=diff, kernel_launches=launches, card=card)
+    if not abs(diff) < 1e-6:
+        raise AssertionError(f"SCI - FCI {diff:.3e} Ha")
     return launches
 
 
@@ -733,6 +947,16 @@ def main():
     del flush
     chain_launches = chain_energies(qt, sd, mf40, fobj40, card)
     max_err = max(max_err, chain_err)
+    del mf40
+    torch.cuda.empty_cache()
+
+    # ---- 10-12. the rest of the restricted driver
+    fobj_fc = qt.fragmentate(mol, n_BE=2, frag_type="chemgen",
+                             frozen_core=True, print_frags=False)
+    later = {"octane_frozen_core": octane_frozen_core(qt, sd, mf, fobj_fc,
+                                                      card),
+             "hexene_iao": hexene_iao(qt, sd, card),
+             "h8_sci": h8_sci(qt, sd, card)}
 
     main = timed["octane_frag0"]
     print(json.dumps({"kernels": [{
@@ -742,7 +966,7 @@ def main():
         "replaces": "quemb_tpu/ops/pallas_df.py:30",
         "launches": launches + chain_launches,
         "launches_by_path": {"octane_f32_tier": launches,
-                             "c40_f32_tier": chain_launches},
+                             "c40_f32_tier": chain_launches, **later},
         "max_abs_err": max_err,
         "ms": main["ms"],
         "plain_ms": main["plain_ms"],

@@ -2,18 +2,22 @@
 
 JAX counterpart: ``quemb_tpu/api.py``.  Mirrors the reference molbe
 ``BE``/``fragmentate`` entry points (reference molbe/mbe.py:173,
-molbe/fragment.py:22) for the slice this port carries: chemgen
-fragmentation, Lowdin localization, Schmidt embedding, the fragment ERI
-transform (``"in-core"`` and the density-fitted routes ``"int-direct-DF"``,
-``"sparse-DF"``, ``"on-fly-sparse-DF"`` and ``"out-core-DF"``; under the
-f32 tier ``"sparse-DF"`` runs the screened-DF CUDA kernel), batched
-fragment initialization, the one-shot solve and density matching
-(``optimize``: analytic HF/MP2/CCSD or numerical Jacobian, quasi-Newton
-loop) with the CCSD, MP2 and FCI bucket solvers.
+molbe/fragment.py:22) for the restricted molecular driver: chemgen
+fragmentation with or without a frozen core, Lowdin, Boys, Pipek-Mezey,
+Edmiston-Ruedenberg or IAO+PAO localization, Schmidt embedding, the
+fragment ERI transform (``"in-core"`` and the density-fitted routes
+``"int-direct-DF"``, ``"sparse-DF"``, ``"on-fly-sparse-DF"`` and
+``"out-core-DF"``; under the f32 tier ``"sparse-DF"`` runs the screened-DF
+CUDA kernel), batched fragment initialization, the one-shot solve, density
+matching (``optimize``: analytic HF/MP2/CCSD or numerical Jacobian,
+quasi-Newton loop) with the CCSD, MP2, FCI, SCI and DMRG solvers, the
+save/restart file, and the full-basis RDMs and energy
+(``rdm1_fullbasis``, ``compute_energy_full``).
 
 Device work runs on an explicit ``torch.device``: ``BE(..., device=...)``
 defaults to CUDA and raises when no card is present; the CPU is used only
-when the caller names it.  Host bookkeeping stays numpy.
+when the caller names it.  Host bookkeeping (the Jacobi and IAO
+localizers, Schmidt) stays numpy, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -27,15 +31,20 @@ from typing import Literal
 import numpy as np
 import torch
 
+from quemb_tpu_torch.chem.elements import ncore_of
 from quemb_tpu_torch.chem.mole import Mole
-from quemb_tpu_torch.chem.scf import RHF
+from quemb_tpu_torch.chem.scf import RHF, get_jk
 from quemb_tpu_torch.embed.fragment import Fragment
 from quemb_tpu_torch.embed.fragment_scf import rhf_orthonormal
 from quemb_tpu_torch.fragment.chemgen import ChemGenArgs, chemgen
 from quemb_tpu_torch.fragment.frag_part import FragPart
+from quemb_tpu_torch.lo.iao import get_iao, get_pao, get_xovlp, \
+    remove_core_mo
+from quemb_tpu_torch.lo.jacobi import get_loc
 from quemb_tpu_torch.lo.lowdin import lowdin_orth
 from quemb_tpu_torch.matching.beopt import BEOPT
 from quemb_tpu_torch.matching.cphf import get_be_error_jacobian
+from quemb_tpu_torch.ops.eri_transform import batched_mo_eri
 from quemb_tpu_torch.solvers.dispatch import be_func
 from quemb_tpu_torch.utils.device import resolve_device
 
@@ -90,6 +99,26 @@ def fragmentate(
     )
 
 
+def _reorder_by_atom(Clo, aoind_by_atom, S, thr: float = 0.5):
+    """Assign localized orbitals to atoms by population and reorder.
+
+    Port of the reference ``shared/external/lo_helper.py:reorder_by_atom_``.
+    """
+    w, V = np.linalg.eigh(S)
+    X = (V * np.sqrt(w)) @ V.T
+    Clo_soao = X @ Clo
+    loind_reorder = []
+    loind_by_atom = []
+    loshift = 0
+    for ra in aoind_by_atom:
+        pop = np.sum(Clo_soao[ra] ** 2.0, axis=0)
+        loind_a = np.where(pop > thr)[0].tolist()
+        loind_reorder += loind_a
+        loind_by_atom.append(list(range(loshift, loshift + len(loind_a))))
+        loshift += len(loind_a)
+    return Clo[:, loind_reorder], loind_by_atom
+
+
 def initialize_pot(n_frag: int, relAO_per_edge_per_frag) -> list[float]:
     pot = []
     for I in range(n_frag):
@@ -121,6 +150,7 @@ class BE:
         fobj: FragPart,
         *,
         lo_method: str = "lowdin",
+        iao_loc_method: str = "lowdin",
         thr_bath: float = 1.0e-10,
         int_transform: str = "in-core",
         auxbasis=None,
@@ -144,21 +174,57 @@ class BE:
         "cholesky[:tol]", "weigend"; see ops/df.py:resolve_auxbasis);
         default: even-tempered from the orbital basis.
 
+        ``lo_method``: "lowdin", "boys", "PM", "ER" (Jacobi sweeps from
+        the Lowdin orbitals) or "IAO" (IAO+PAO on the fragmentation's
+        ``iao_valence_basis``, localized within each space by
+        ``iao_loc_method``).  A ``fobj`` built with ``frozen_core=True``
+        freezes the core orbitals: their density enters the one-electron
+        Hamiltonian and ``E_core``.
+
         ``MO_coeff_epsilon`` / ``AO_coeff_epsilon`` are the sparse-DF
         screening thresholds with the reference's names and production
         defaults (mbe.py:191-192): the per-MO reachability screen and
         the geometric AO-pair screen.  ``screen_eps`` (legacy single
         knob) overrides both when given.  ``device`` defaults to CUDA; a
         mean field that was given no device runs its J/K there too."""
+        self._set_options(mf, fobj, thr_bath, int_transform, auxbasis,
+                          screen_eps, MO_coeff_epsilon, AO_coeff_epsilon,
+                          device)
+        mol = mf.mol
+        self.Nocc = mol.nelectron // 2
+        self.enuc = mf.energy_nuc()
+        self.hcore = np.asarray(mf.get_hcore())
+        self.S = np.asarray(mf.get_ovlp())
+        self.C = np.asarray(mf.mo_coeff)
+        self.mo_energy = np.asarray(mf.mo_energy)
+        self.hf_dm = mf.make_rdm1()
+        self.hf_veff = mf.get_veff()
+        self.hf_etot = mf.e_tot
+
+        if self.frozen_core:
+            self.Nocc -= self.ncore
+            C_val = self.C[:, self.ncore : self.ncore + self.Nocc]
+            self.hf_dm = 2.0 * C_val @ C_val.T
+            self.C_core = self.C[:, : self.ncore]
+            self.P_core = self.C_core @ self.C_core.T
+            # on the mean field's device, dense or density-fitted alike
+            self.core_veff = mf.get_veff(dm=self.P_core * 2.0)
+            self.E_core = float(np.einsum(
+                "ji,ji->", 2.0 * self.hcore + self.core_veff, self.P_core
+            ))
+            self.hf_veff = self.hf_veff - self.core_veff
+            self.hcore = self.hcore + self.core_veff
+
+        self.localize(lo_method, iao_loc_method=iao_loc_method)
+        self.initialize()
+
+    def _set_options(self, mf, fobj, thr_bath, int_transform, auxbasis,
+                     screen_eps, MO_coeff_epsilon, AO_coeff_epsilon,
+                     device) -> None:
+        """What the constructor and :meth:`from_restart_file` share: the
+        options, the device, and an empty fragment state."""
         if int_transform not in _INT_TRANSFORMS:
             raise ValueError(f"int_transform={int_transform}")
-        if lo_method.lower() != "lowdin":
-            raise NotImplementedError(
-                f"lo_method={lo_method!r}: only Lowdin is ported (ROADMAP"
-                " A12)"
-            )
-        if fobj.frozen_core:
-            raise NotImplementedError("frozen core is ROADMAP A10")
         self.device = resolve_device(device, "BE")
         mf.bind_device(self.device)
         self.int_transform = int_transform
@@ -171,27 +237,17 @@ class BE:
         self.mf = mf
         self.fobj = fobj
         self.thr_bath = thr_bath
-
-        mol = mf.mol
-        self.mol = mol
-        self.Nocc = mol.nelectron // 2
-        self.enuc = mf.energy_nuc()
-        self.hcore = np.asarray(mf.get_hcore())
-        self.S = np.asarray(mf.get_ovlp())
-        self.C = np.asarray(mf.mo_coeff)
-        self.hf_dm = mf.make_rdm1()
-        self.hf_veff = mf.get_veff()
-        self.hf_etot = mf.e_tot
+        self.mol = mf.mol
         self.ebe_hf = 0.0
         self.ebe_tot = 0.0
-        self.E_core = 0.0  # no frozen core (ROADMAP A10)
-
-        self.localize()
+        self.frozen_core = fobj.frozen_core
+        self.ncore = (fobj.ncore or 0) if fobj.frozen_core else 0
+        self.E_core = 0.0
+        self.C_core = self.P_core = self.core_veff = None
         self.fragments: list[Fragment] = []
         self.pot = initialize_pot(
             fobj.n_frag, fobj.relAO_per_edge_per_frag
         )
-        self.initialize()
 
     def _incore_via_cd(self) -> bool:
         """Route the in-core ERI transform through the pivoted-CD factor?
@@ -235,12 +291,98 @@ class BE:
         return DFTensor(self.mol, arg).B
 
     # ------------------------------------------------------------ localize
-    def localize(self) -> None:
-        """Lowdin orthogonalization: W = S^{-1/2}, lmo_coeff = W^T S C."""
+    def localize(self, lo_method: str, iao_loc_method: str = "lowdin") -> None:
+        """Localized orbitals ``W`` and the MOs in them, ``lmo_coeff``.
+
+        Lowdin orthogonalization runs on the device; with a frozen core
+        the core is projected out, orbitals of population above 0.7 are
+        kept and re-orthogonalized; Boys, PM and ER start from there.
+        """
+        norm = {"lowdin": "lowdin", "boys": "boys", "pm": "PM", "er": "ER",
+                "iao": "IAO"}
+        lo_method = norm.get(lo_method.lower(), lo_method)
+        if lo_method == "IAO":
+            self._localize_iao(iao_loc_method)
+            return
+        if lo_method not in ("lowdin", "boys", "PM", "ER"):
+            raise NotImplementedError(f"lo_method={lo_method!r}")
         S = torch.as_tensor(self.S, device=self.device)
         W = lowdin_orth(S).cpu().numpy()
+        if self.frozen_core:
+            # project out the core, re-orthogonalize the remainder
+            # (reference mbe.py:1407-1426)
+            C_ = (np.eye(W.shape[0]) - self.P_core @ self.S) @ W
+            Cpop = np.diag(C_.T @ self.S @ C_)
+            C_ = C_[:, np.where(Cpop > 0.7)[0]]
+            es_, vs_ = np.linalg.eigh(C_.T @ self.S @ C_)
+            W = C_ @ ((vs_ / np.sqrt(es_)) @ vs_.T)
+        if lo_method != "lowdin":
+            # Jacobi localization seeded from the Lowdin orbitals
+            # (reference mbe.py:1451-1481)
+            W = get_loc(self.mol, W, lo_method, S=self.S)
         self.W = W
-        self.lmo_coeff = W.T @ self.S @ self.C
+        self.lmo_coeff = W.T @ self.S @ self.C[:, self.ncore :]
+
+    def _localize_iao(self, iao_loc_method: str = "lowdin") -> None:
+        """IAO+PAO localization (reference mbe.py:1483-1609), host numpy
+        as in the JAX package."""
+        fobj = self.fobj
+        assert fobj.iao_valence_basis is not None
+        Co = self.C[:, : self.mol.nelectron // 2]
+        S_vw, S_vv, _ = get_xovlp(self.mol, basis=fobj.iao_valence_basis)
+        Ciao = get_iao(
+            Co, S_vw, self.S, S_vv, self.mol, fobj.iao_valence_basis,
+            iao_loc_method,
+        )
+        Cpao = get_pao(
+            Ciao, self.S, S_vw, self.mol, fobj.iao_valence_basis,
+            iao_loc_method,
+        )
+        if iao_loc_method != "lowdin":
+            Ciao = get_loc(self.mol, Ciao, iao_loc_method)
+            Cpao = get_loc(self.mol, Cpao, iao_loc_method)
+
+        aoind_by_atom = [
+            list(range(p0, p1)) for p0, p1 in self.mol.aoslice_by_atom()
+        ]
+        Ciao, iaoind_by_atom = _reorder_by_atom(Ciao, aoind_by_atom, self.S)
+        Cpao, paoind_by_atom = _reorder_by_atom(Cpao, aoind_by_atom, self.S)
+
+        if self.frozen_core:
+            Ciao = remove_core_mo(Ciao, self.C[:, : self.ncore], self.S)
+
+        # per atom: its valence IAOs (the core ones dropped), then its PAOs
+        cols = []
+        ncore_cum = 0
+        for ix in range(self.mol.natm):
+            if self.frozen_core:
+                nc = ncore_of(self.mol.atom_charge(ix))
+                ncore_cum += nc
+                cols.append(Ciao[:, [i - ncore_cum
+                                     for i in iaoind_by_atom[ix][nc:]]])
+            else:
+                cols.append(Ciao[:, iaoind_by_atom[ix]])
+            cols.append(Cpao[:, paoind_by_atom[ix]])
+        self.W = np.hstack(cols)
+        assert np.allclose(
+            self.W.T @ self.S @ self.W, np.eye(self.W.shape[1])
+        )
+
+        nmo = self.C.shape[1] - self.ncore
+        nlo = self.W.shape[1]
+        if nmo > nlo:
+            # the virtuals that the localized space holds, by SVD
+            Co_nocore = self.C[:, self.ncore : self.ncore + self.Nocc]
+            Cv = self.C[:, self.ncore + self.Nocc :]
+            _, sv, vt = np.linalg.svd(
+                self.W.T @ self.S @ Cv, full_matrices=False
+            )
+            nvlo = nlo - self.Nocc
+            assert np.allclose(np.sum(sv[:nvlo]), nvlo)
+            C_ = np.hstack([Co_nocore, Cv @ vt[:nvlo].T])
+            self.lmo_coeff = self.W.T @ self.S @ C_
+        else:
+            self.lmo_coeff = self.W.T @ self.S @ self.C[:, self.ncore :]
 
     # ---------------------------------------------------------- initialize
     def initialize(self) -> None:
@@ -346,7 +488,7 @@ class BE:
         E_hf = self._init_fragments_batched()
         logger.info("init: fragment init %.2fs", time.perf_counter() - t0)
 
-        self.ebe_hf = E_hf + self.enuc
+        self.ebe_hf = E_hf + self.enuc + self.E_core
         hf_err = self.hf_etot - self.ebe_hf
         logger.info(f"HF-in-HF error: {hf_err:.4e} Ha")
         print(f"HF-in-HF error                 :  {hf_err:>.4e} Ha")
@@ -366,7 +508,7 @@ class BE:
         bucket runs one batched device computation.  Returns the summed
         HF-in-HF fragment energy.
         """
-        C_occ = self.C[:, : self.Nocc]
+        C_occ = self.C[:, self.ncore : self.ncore + self.Nocc]
         for fr in self.fragments:
             TA = fr.TA
             C_ = TA.T @ self.S @ C_occ
@@ -517,3 +659,235 @@ class BE:
 
     def get_be_error_jacobian(self, jac_solver: str = "HF"):
         return get_be_error_jacobian(self.fragments, jac_solver)
+
+    # ------------------------------------------------------- save / restart
+    def save(self, save_file="storebe.npz") -> None:
+        """Persist the mean-field-level state for restart (reference
+        ``molbe/mbe.py:458 save``; npz instead of pickle).  The keys are
+        the JAX package's, so a file written by either package restarts
+        the other."""
+        np.savez(
+            save_file,
+            Nocc=self.Nocc,
+            hf_veff=self.hf_veff,
+            hcore=self.hcore,
+            S=self.S,
+            C=self.C,
+            hf_dm=self.hf_dm,
+            hf_etot=self.hf_etot,
+            W=self.W,
+            lmo_coeff=self.lmo_coeff,
+            enuc=self.enuc,
+            E_core=self.E_core,
+            mo_energy=self.mo_energy,
+        )
+
+    @classmethod
+    def from_restart_file(
+        cls, mf, fobj, restart_file="storebe.npz", *,
+        thr_bath: float = 1.0e-10, int_transform: str = "in-core",
+        auxbasis=None, screen_eps: float | None = None,
+        MO_coeff_epsilon: float = 1.0e-5, AO_coeff_epsilon: float = 1.0e-10,
+        device: torch.device | str | None = None,
+    ) -> "BE":
+        """A BE object from a save file: the mean-field state and the
+        localized orbitals are read, the fragments are rebuilt (Schmidt,
+        ERI transform and fragment SCF on ``device``)."""
+        be = cls.__new__(cls)
+        be._set_options(mf, fobj, thr_bath, int_transform, auxbasis,
+                        screen_eps, MO_coeff_epsilon, AO_coeff_epsilon,
+                        device)
+        with np.load(restart_file) as data:
+            for key in ("hf_veff", "hcore", "S", "C", "hf_dm", "W",
+                        "lmo_coeff", "mo_energy"):
+                setattr(be, key, data[key])
+            be.Nocc = int(data["Nocc"])
+            be.enuc = float(data["enuc"])
+            be.E_core = float(data["E_core"])
+            be.hf_etot = float(data["hf_etot"])
+        be.initialize()
+        return be
+
+    # ------------------------------------------------------ RDM reassembly
+    def _rdms_ao(self, with_rdm2: bool, strip_mf: bool):
+        """The democratically projected AO 1-RDM and (``with_rdm2``) 2-RDM
+        summed over the fragments, on ``self.device``, before
+        symmetrization.  Per bucket of equal embedding width: the center
+        projection and the first index of the back-transform fuse into one
+        matrix, the other three indices are transformed one at a time, and
+        the first index and the fragment sum are one GEMM.  ``strip_mf``
+        takes each fragment's approximate mean-field part out of its
+        2-RDM first (reference mbe.py:520-534)."""
+        dev = self.device
+        nao = self.C.shape[0]
+        rdm1 = torch.zeros((nao, nao), dtype=torch.float64, device=dev)
+        # the 2-RDM accumulates as [q, r, s, p]
+        rdm2 = (torch.zeros((nao,) * 4, dtype=torch.float64, device=dev)
+                if with_rdm2 else None)
+        buckets: dict[int, list[Fragment]] = {}
+        for fr in self.fragments:
+            buckets.setdefault(fr.nao, []).append(fr)
+        SW = self.S @ self.W
+        for n, frs in buckets.items():
+            proj1, AOm = [], []
+            for fr in frs:
+                cind = [fr.AO_in_frag[i]
+                        for i in fr.weight_and_relAO_per_center[1]]
+                SWc = SW[:, cind]
+                Pc = fr.TA.T @ (SWc @ SWc.T) @ fr.TA
+                proj1.append(fr.TA @ Pc @ fr.mo_coeffs)
+                AOm.append(fr.TA @ fr.mo_coeffs)
+            proj1 = torch.as_tensor(np.stack(proj1), device=dev)
+            AOm = torch.as_tensor(np.stack(AOm), device=dev)
+            d1 = torch.stack([torch.as_tensor(fr.rdm1__, device=dev)
+                              for fr in frs])
+            rdm1 += (proj1 @ d1 @ AOm.transpose(1, 2)).sum(0)
+            if not with_rdm2:
+                continue
+            d2 = torch.stack([torch.as_tensor(fr.rdm2__, device=dev)
+                              for fr in frs])
+            if strip_mf:
+                occ = torch.zeros((len(frs), n), dtype=d1.dtype, device=dev)
+                for k, fr in enumerate(frs):
+                    occ[k, : fr.nsocc] = 2.0
+                c1 = d1 - torch.diag_embed(occ)
+                d2 = d2 - (torch.einsum("fij,fkl->fijkl", c1, c1)
+                           - 0.5 * torch.einsum("fij,fkl->fiklj", c1, c1))
+            # indices l, k, j back to AOs (axis-rolling: [f, q, r, s, i])
+            X = d2
+            for _ in range(3):
+                X = (X.reshape(len(frs), -1, n) @ AOm.transpose(1, 2))
+                X = X.reshape(len(frs), *d2.shape[1:4], nao).movedim(-1, 1)
+                d2 = X
+            # [f, q, r, s, i] -> [(q r s), (f i)] against [(f i), p]
+            Xq = X.reshape(len(frs), nao ** 3, n).permute(1, 0, 2)
+            rdm2.view(nao ** 3, nao).addmm_(
+                Xq.reshape(nao ** 3, len(frs) * n),
+                proj1.permute(0, 2, 1).reshape(len(frs) * n, nao),
+            )
+            del X, Xq, d2
+        if with_rdm2:
+            rdm2 = rdm2.permute(3, 0, 1, 2)
+        return rdm1, rdm2
+
+    def rdm1_fullbasis(
+        self,
+        return_ao: bool = True,
+        only_rdm1: bool = False,
+        only_rdm2: bool = False,
+        return_lo: bool = False,
+        return_RDM2: bool = True,
+        print_energy: bool = False,
+    ):
+        """Reassemble full-basis 1-/2-RDMs from the solved fragments.
+
+        Same contract as reference ``molbe/mbe.py:488 rdm1_fullbasis``
+        (democratic projection via center projectors) and as the JAX
+        method; computed on ``self.device`` (:meth:`_rdms_ao`), returned
+        as host arrays.  ``return_RDM2`` strips each fragment's
+        mean-field part and rebuilds the non-cumulant part from the
+        reassembled 1-RDM.  The AO 1-RDM is accumulated under
+        ``only_rdm2`` too, as in the JAX method, because that rebuild
+        needs it.
+        """
+        rdm1AO, rdm2AO = self._rdms_ao(with_rdm2=not only_rdm1,
+                                       strip_mf=return_RDM2)
+        dev = self.device
+        C = torch.as_tensor(self.C, device=dev)
+        S = torch.as_tensor(self.S, device=dev)
+        W = torch.as_tensor(self.W, device=dev)
+        CmoT_S, CloT_S = C.T @ S, W.T @ S
+        out = {}
+        if not only_rdm1:
+            rdm2AO = 0.5 * (rdm2AO + rdm2AO.permute(3, 2, 1, 0))
+            if return_RDM2:
+                rdm2AO = rdm2AO + (
+                    torch.einsum("ij,kl->ijkl", rdm1AO, rdm1AO)
+                    - 0.5 * torch.einsum("ij,kl->iklj", rdm1AO, rdm1AO)
+                )
+            out["rdm2AO"] = rdm2AO
+            if not return_ao:
+                out["rdm2MO"] = batched_mo_eri(rdm2AO[None],
+                                               CmoT_S.T[None])[0]
+            if return_lo:
+                out["rdm2LO"] = batched_mo_eri(rdm2AO[None],
+                                               CloT_S.T[None])[0]
+        if not only_rdm2:
+            rdm1AO = 0.5 * (rdm1AO + rdm1AO.T)
+            out["rdm1AO"] = rdm1AO
+            out["rdm1MO"] = CmoT_S @ rdm1AO @ CmoT_S.T
+            out["rdm1LO"] = CloT_S @ rdm1AO @ CloT_S.T
+        if return_RDM2 and print_energy:
+            Eh1 = float((torch.as_tensor(self.hcore, device=dev)
+                         * rdm1AO).sum())
+            E2 = 0.5 * float((self.mf.get_eri_dev() * rdm2AO).sum())
+            E_tot = Eh1 + E2 + self.E_core + self.enuc
+            print(f" 1-elec E : {Eh1:.8f} Ha; 2-elec E : {E2:.8f} Ha; "
+                  f"E_BE : {E_tot:.8f} Ha")
+        if only_rdm1:
+            names = ("rdm1AO",) if return_ao else ("rdm1MO",)
+        elif only_rdm2:
+            names = ("rdm2AO",) if return_ao else ("rdm2MO",)
+        elif return_lo:
+            names = (("rdm1AO", "rdm2AO") if return_ao
+                     else ("rdm1MO", "rdm2MO")) + ("rdm1LO", "rdm2LO")
+        else:
+            names = ("rdm1AO", "rdm2AO") if return_ao \
+                else ("rdm1MO", "rdm2MO")
+        res = tuple(out[k].cpu().numpy() for k in names)
+        return res[0] if len(res) == 1 else res
+
+    def compute_energy_full(
+        self,
+        approx_cumulant: bool = False,
+        use_full_rdm: bool = False,
+        return_rdm: bool = True,
+    ):
+        """Total energy from the reassembled full-basis RDMs (reference
+        ``molbe/mbe.py:703 compute_energy_full``; the JAX method's
+        expressions), on ``self.device``: one J/K build of the mean
+        field's AO ERI (``chem/scf.py:get_jk``) over the reassembled
+        density and the cumulant traced against the same ERI.  Sets
+        ``ebe_tot``: the approximate-cumulant energy on top of the BE-HF
+        energy, or with ``approx_cumulant=False`` the expression with
+        every potential built from the reassembled density.
+
+        The JAX method reassembles the pure cumulant twice, once beside
+        the LO RDMs and once under ``only_rdm2``; both are the same sum,
+        so it is built once here.  ``use_full_rdm`` is accepted and, as
+        there, not read.
+        """
+        dev = self.device
+        dm1, cum2 = self._rdms_ao(with_rdm2=True, strip_mf=False)
+        dm1 = 0.5 * (dm1 + dm1.T)
+        cum2 = 0.5 * (cum2 + cum2.permute(3, 2, 1, 0))
+        eri = self.mf.get_eri_dev()
+        vj, vk = get_jk(eri, dm1)
+        veff = vj - 0.5 * vk
+        e_cum = float((eri * cum2).sum())
+        hcore = torch.as_tensor(self.hcore, device=dev)
+        d_dm = dm1 - torch.as_tensor(self.hf_dm, device=dev)
+        e_approx = self.ebe_hf + float(
+            (hcore * d_dm).sum()
+            + (torch.as_tensor(self.hf_veff, device=dev) * d_dm).sum()
+        ) + 0.5 * e_cum
+        self.ebe_tot = e_approx
+        if not approx_cumulant:
+            e_true = (
+                float((hcore * dm1).sum())
+                + 0.5 * float((veff * dm1).sum())
+                + 0.5 * e_cum
+                + self.enuc
+                + self.E_core
+            )
+            self.ebe_tot = e_true
+            logger.info(
+                f"E_BE(true) = {e_true:.8f} Ha, approx = {e_approx:.8f} Ha"
+            )
+        else:
+            logger.info(f"E_BE(approx) = {e_approx:.8f} Ha")
+        if not return_rdm:
+            return None
+        rdm2_full = (torch.einsum("ij,kl->ijkl", dm1, dm1)
+                     - 0.5 * torch.einsum("ij,kl->iklj", dm1, dm1) + cum2)
+        return dm1.cpu().numpy(), rdm2_full.cpu().numpy()

@@ -25,6 +25,23 @@ MAX_CYCLE = 100
 _PAD_DETECT = 5.0e5
 
 
+def _eigh_finite(A: torch.Tensor):
+    """Batched ``eigh`` in which a matrix with a non-finite entry gets NaN
+    eigenvalues and eigenvectors and leaves the others alone.
+
+    This is what the JAX package's ``eigh`` gives such a matrix.  cuSOLVER
+    instead reports it as a convergence failure and ``torch.linalg.eigh``
+    raises for the whole batch, so such a lane is handed to it as the
+    identity and its outputs are NaN: its state, and so its energy, shows
+    what happened to it, and the other lanes go on.
+    """
+    ok = torch.isfinite(A).all(-1).all(-1)
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    w, V = _eigh(torch.where(ok[..., None, None], A, eye))
+    return (torch.where(ok[..., None], w, float("nan")),
+            torch.where(ok[..., None, None], V, float("nan")))
+
+
 def _eigh_deflated(F: torch.Tensor):
     """eigh of [..., n, n] Fock matrices that may carry bucket-merge pads.
 
@@ -44,7 +61,7 @@ def _eigh_deflated(F: torch.Tensor):
     lo = torch.where(pad, inf, d - off).amin(-1, keepdim=True)
     hi = torch.where(pad, -inf, d + off).amax(-1, keepdim=True)
     deff = torch.where(occpad, lo - 1.0, torch.where(virpad, hi + 1.0, d))
-    return _eigh(F + torch.diag_embed(deff - d))
+    return _eigh_finite(F + torch.diag_embed(deff - d))
 
 
 def _fock(h, eri, dm):
@@ -55,16 +72,28 @@ def _fock(h, eri, dm):
 
 def _diis_solve(err_flat, fock_flat, nvalid):
     """DIIS extrapolation per lane: err_flat, fock_flat [nf, m, n*n],
-    nvalid [nf].  Bordered system with invalid slots masked to identity
-    rows, solved by an eigh pseudo-inverse (cutoff 1e-14) as in the JAX
-    module."""
+    nvalid [nf].
+
+    The JAX module's bordered system: the error Gram block of the valid
+    slots plus 1e-14 on its diagonal, invalid slots masked to identity
+    rows, solved by an eigh pseudo-inverse (cutoff 1e-14).  Here the valid
+    block is first divided by its largest diagonal entry.  The bordered
+    solution's coefficients do not change when that block is scaled by a
+    positive number (only the multiplier does), so on well-conditioned
+    histories they are the JAX module's; a history of error vectors near
+    1e-7 or below, whose Gram entries sit at or under the 1e-14 terms,
+    keeps its eigenvalues at order one instead of at the cutoff.  A lane
+    with a non-finite history gets NaN coefficients (:func:`_eigh_finite`)
+    and the other lanes are unchanged.
+    """
     nf, m, _ = err_flat.shape
     dt, dev = err_flat.dtype, err_flat.device
     valid = torch.arange(m, device=dev)[None, :] < nvalid[:, None]
-    B = err_flat @ err_flat.transpose(1, 2)
-    B = torch.where(valid[:, :, None] & valid[:, None, :], B, 0.0)
     eye = torch.eye(m, dtype=dt, device=dev)
-    B = B + torch.diag_embed((~valid).to(dt)) + 1e-14 * eye
+    B = err_flat @ err_flat.transpose(1, 2) + 1e-14 * eye
+    B = torch.where(valid[:, :, None] & valid[:, None, :], B, 0.0)
+    B = B / torch.diagonal(B, dim1=1, dim2=2).amax(1)[:, None, None]
+    B = B + torch.diag_embed((~valid).to(dt))
     border = torch.where(valid, -1.0, 0.0).to(dt)
     Bfull = torch.zeros((nf, m + 1, m + 1), dtype=dt, device=dev)
     Bfull[:, :m, :m] = B
@@ -72,7 +101,7 @@ def _diis_solve(err_flat, fock_flat, nvalid):
     Bfull[:, :m, m] = border
     rhs = torch.zeros((nf, m + 1), dtype=dt, device=dev)
     rhs[:, m] = -1.0
-    w, V = _eigh(Bfull)
+    w, V = _eigh_finite(Bfull)
     w_safe = torch.where(w.abs() < 1e-14, float("inf"), w)
     y = (V.transpose(1, 2) @ rhs[..., None])[..., 0] / w_safe
     c = (V @ y[..., None])[:, :m, 0]

@@ -2,16 +2,18 @@
 
 JAX counterpart: ``quemb_tpu/solvers/dispatch.py``.  Fragments are grouped
 into buckets (:func:`form_merge_classes`: merged and zero-padded for CCSD
-and MP2, one bucket per true shape for FCI) and each bucket runs
-:func:`_solve_bucket_batched` with the fragment axis as a leading batch
-dimension: batched fragment SCF -> MO-ERI transform -> the solver (closed-
-shell CCSD, MP2, or FCI on the host) -> RDMs -> embedding-basis 1-RDM ->
-cumulant or non-cumulant energy rows.  The JAX module keeps a fused and a
-staged form of this pass because one is a single XLA program; eager torch
-has one form.  Relaxed CCSD densities, the SCI/DMRG/SHCI solvers, the
-spin-orbital CCSD switch and the large-fragment path
-(``_solve_bucket_large``) are ROADMAP A9 and raise.  The fragment axis is
-not sharded over devices.
+and MP2, one bucket per true shape for the CI solvers) and
+:func:`_solve_bucket` routes each one, as the JAX function does: a bucket
+wider than ``_NEMB_BATCHED_MAX`` on a card, solved by CCSD or MP2, goes
+fragment by fragment through :func:`_solve_bucket_large`; every other
+bucket runs :func:`_solve_bucket_batched` with the fragment axis as a
+leading batch dimension: batched fragment SCF -> MO-ERI transform -> the
+solver (closed-shell CCSD or MP2 on the device; FCI, SCI or DMRG on the
+host) -> RDMs -> embedding-basis 1-RDM -> cumulant or non-cumulant energy
+rows.  The JAX module keeps a fused and a staged form of this pass because
+one is a single XLA program; eager torch has one form.  Relaxed CCSD
+densities and the spin-orbital CCSD switch are ROADMAP A14 and raise.  The
+fragment axis is not sharded over devices.
 """
 
 from __future__ import annotations
@@ -27,14 +29,22 @@ from quemb_tpu_torch.embed.fragment_scf import rhf_orthonormal
 from quemb_tpu_torch.ops.eri_transform import \
     batched_mo_eri as _batched_mo_eri
 from quemb_tpu_torch.solvers.ccsd import _default_conv_tol, _f32_only
+from quemb_tpu_torch.solvers.dmrg import solve_dmrg
 from quemb_tpu_torch.solvers.fci import remove_mf_part, solve_fci
 from quemb_tpu_torch.solvers.mp2 import add_mean_field_rdm2, \
     make_rdm1_mp2, make_rdm2_mp2, mp2_amplitudes
-from quemb_tpu_torch.solvers.rccsd import _rccsd_from_mo_batched
+from quemb_tpu_torch.solvers.rccsd import _rccsd_from_mo_batched, \
+    rccsd_large
+from quemb_tpu_torch.solvers.sci import solve_sci
 
-#: largest padded embedding dimension of the batched bucket path; larger
-#: buckets belong to the fragment-at-a-time path of ROADMAP A9
+#: largest padded embedding dimension of the batched bucket path on a
+#: card; wider CCSD and MP2 buckets go through the fragment-at-a-time path
+#: (the JAX package's value)
 _NEMB_BATCHED_MAX = 48
+
+#: the fragment solvers that run on the host, one fragment at a time, on
+#: Hamiltonians transformed on the device
+_HOST_CI = {"FCI": solve_fci, "SCI": solve_sci, "DMRG": solve_dmrg}
 
 
 def _mo_transform(C_b, h_b, eri_b):
@@ -195,7 +205,128 @@ def _bucket_dev(frs: list[Fragment], pads: tuple[tuple[int, int], ...]):
     return out
 
 
-_UNPORTED_SOLVERS = ("SCI", "DMRG", "SHCI", "HCI")
+def _check_solver(solver: str, relax_density: bool) -> None:
+    """Raise for what the bucket solve does not run, with the JAX
+    package's words where it has them."""
+    if relax_density:
+        raise NotImplementedError(
+            "relax_density=True (solvers/ccsd_relaxed.py) is ROADMAP A14"
+        )
+    if solver in ("SHCI", "HCI"):
+        # Reference enum parity (molbe/solver.py:42 Solvers literal).
+        raise NotImplementedError(
+            f"Solver {solver!r} requires the external cornell_shci"
+            " package; the reference gates these behind optional"
+            " dependencies too (use solver='SCI' for the built-in"
+            " heat-bath selected CI)."
+        )
+    if solver not in ("CCSD", "MP2", *_HOST_CI):
+        raise NotImplementedError(f"Solver {solver} not implemented")
+    if solver == "CCSD" and os.environ.get(
+        "QUEMB_TPU_CCSD_SPINORB", ""
+    ) in ("1", "true", "yes"):
+        raise NotImplementedError(
+            "QUEMB_TPU_CCSD_SPINORB: the spin-orbital CCSD kernel is"
+            " ROADMAP A14; unset it for the closed-shell kernel"
+        )
+
+
+def _takes_large_path(nemb: int, device: torch.device, solver: str) -> bool:
+    """The JAX package's routing: a bucket wider than
+    ``_NEMB_BATCHED_MAX`` solved by CCSD or MP2 goes fragment by fragment
+    on a card; the CPU always runs the batched path."""
+    return (
+        nemb > _NEMB_BATCHED_MAX
+        and device.type != "cpu"
+        and solver in ("CCSD", "MP2")
+    )
+
+
+def _solve_bucket(frs, solver, eeval, use_cumulant, relax_density,
+                  pads=None):
+    """One bucket of :func:`be_func`, through the large-fragment or the
+    batched path (:func:`_takes_large_path`); returns what they return."""
+    _check_solver(solver, relax_density)
+    if pads is None:
+        pads = ((0, 0),) * len(frs)
+    nemb = frs[0].nao + pads[0][0] + pads[0][1]
+    if _takes_large_path(nemb, frs[0].eri.device, solver):
+        # merge classes wider than _NEMB_BATCHED_MAX hold no pads
+        return _solve_bucket_large(frs, solver, eeval, use_cumulant)
+    return _solve_bucket_batched(frs, solver, eeval, use_cumulant,
+                                 relax_density, pads=pads)
+
+
+def _solve_bucket_large(frs, solver, eeval, use_cumulant):
+    """Fragment-at-a-time pipeline for large embedding spaces.
+
+    One fragment at its true shape goes end to end on its ERI's device:
+    fragment SCF -> MO transform -> CCSD (:func:`rccsd_large`) or MP2
+    amplitudes -> the unrelaxed RDMs -> energy rows.  Only its results
+    are kept (orbitals, amplitudes, RDMs, the embedding-basis 1-RDM on the
+    host), so the next fragment's working set reuses the memory of this
+    one's.  As in the JAX function, MP2 goes through the CCSD form of the
+    RDMs with t1 = 0, not the MP2 RDMs of the batched path.  Returns the
+    summed ``[e1, e2, ec]`` with ``eeval``, else None.
+    """
+    _check_solver(solver, False)
+    if solver not in ("CCSD", "MP2"):
+        raise NotImplementedError(
+            f"large-fragment path supports CCSD/MP2, not {solver}"
+        )
+    tot = [0.0, 0.0, 0.0]
+    for fr in frs:
+        nsocc = fr.nsocc
+        eri = fr.eri[None]
+        device = eri.device
+        h, dm0 = (
+            torch.as_tensor(a, device=device)[None]
+            for a in (fr.fock + fr.heff, fr.dm0)
+        )
+        moe, C, _, _ = rhf_orthonormal(h, eri, nsocc, dm0)
+        eri_mo = _batched_mo_eri(eri, C)
+        if solver == "CCSD":
+            t1, t2, _, delta = rccsd_large(eri_mo[0], moe[0], nsocc)
+            if not _f32_only() and delta > 10 * _default_conv_tol():
+                warnings.warn(
+                    f"CCSD fragment not fully converged: max|dt| = "
+                    f"{delta:.2e}"
+                )
+        else:
+            t2 = mp2_amplitudes(eri_mo[0], moe[0], nsocc)[0]
+            t1 = t2.new_zeros((nsocc, fr.nao - nsocc))
+        del eri_mo
+        rdm1, rdm2 = _rdm12_urlx_batched(t1[None], t2[None],
+                                         with_dm1=not use_cumulant)
+        fr.t1, fr.t2 = t1, t2  # device
+        fr.mo_coeffs = C[0].cpu().numpy()
+        fr.mo_energy = moe[0].cpu().numpy()
+        fr._rdm1 = _batched_rdm1_emb(C, rdm1)[0].cpu().numpy()
+        fr.rdm1__ = rdm1[0]  # device
+        if not eeval:
+            continue
+        fr.rdm2__ = rdm2[0]  # device
+        occ_mask = torch.zeros((1, fr.nao), dtype=C.dtype, device=device)
+        occ_mask[0, :nsocc] = 1.0
+        center_w = np.zeros((1, fr.nao))
+        w, idx = fr.weight_and_relAO_per_center
+        center_w[0, list(idx)] = w
+        center_w = torch.as_tensor(center_w, device=device)
+        h1 = torch.as_tensor(fr.h1, device=device)[None]
+        if use_cumulant:
+            rows = _batched_energy_rows(
+                C, h1, torch.as_tensor(fr.veff0, device=device)[None], eri,
+                rdm1, rdm2, occ_mask, center_w,
+            )
+        else:
+            rows = _batched_energy_rows_nc(
+                C, h1, torch.as_tensor(fr.veff, device=device)[None], eri,
+                rdm1, rdm2, center_w,
+            )
+        e = [float(x[0]) for x in rows]
+        fr.ebe = sum(e)
+        tot = [a + b for a, b in zip(tot, e)]
+    return tot if eeval else None
 
 
 def _solve_bucket_batched(frs, solver, eeval, use_cumulant, relax_density,
@@ -207,42 +338,22 @@ def _solve_bucket_batched(frs, solver, eeval, use_cumulant, relax_density,
     target so near-same-shaped buckets run as ONE batch -- exactly (see
     _PAD_SHIFT); per-fragment results are sliced back to true shapes
     before they are stored.  Solvers: ``"CCSD"`` and ``"MP2"`` on the
-    device, ``"FCI"`` with the SCF and the MO transform on the device and
-    the CI on the host; cumulant or non-cumulant energies.  Returns the
-    bucket's summed ``[e1, e2, ec]`` with ``eeval``, else None;
-    per-fragment results are written back onto the fragments.
+    device; ``"FCI"``, ``"SCI"`` and ``"DMRG"`` with the SCF and the MO
+    transform on the device and the CI on the host; cumulant or
+    non-cumulant energies.  Any width runs here (the routing of wide
+    buckets is :func:`_solve_bucket`'s).  Returns the bucket's summed
+    ``[e1, e2, ec]`` with ``eeval``, else None; per-fragment results are
+    written back onto the fragments.
     """
-    if relax_density:
-        raise NotImplementedError(
-            "relax_density=True (solvers/ccsd_relaxed.py) is ROADMAP A9"
-        )
-    if solver in _UNPORTED_SOLVERS:
-        raise NotImplementedError(
-            f"solver={solver!r}: CCSD, MP2 and FCI are ported; SCI, DMRG"
-            " and SHCI/HCI are ROADMAP A9"
-        )
-    if solver not in ("CCSD", "MP2", "FCI"):
-        raise NotImplementedError(f"Solver {solver} not implemented")
-    if solver == "CCSD" and os.environ.get(
-        "QUEMB_TPU_CCSD_SPINORB", ""
-    ) in ("1", "true", "yes"):
-        raise NotImplementedError(
-            "QUEMB_TPU_CCSD_SPINORB: the spin-orbital CCSD kernel is"
-            " ROADMAP A9; unset it for the closed-shell kernel"
-        )
+    _check_solver(solver, relax_density)
     if pads is None:
         pads = ((0, 0),) * len(frs)
-    if solver == "FCI" and any(po or pv for po, pv in pads):
+    if solver in _HOST_CI and any(po or pv for po, pv in pads):
         raise ValueError(
             "bucket-merge padding supports batched CCSD/MP2 only"
         )
     nsocc = frs[0].nsocc + pads[0][0]
     nemb = frs[0].nao + pads[0][0] + pads[0][1]
-    if nemb > _NEMB_BATCHED_MAX:
-        raise NotImplementedError(
-            f"nemb={nemb} > {_NEMB_BATCHED_MAX}: the fragment-at-a-time"
-            " large-bucket path (_solve_bucket_large) is ROADMAP A9"
-        )
     dev = _bucket_dev(frs, pads)
     device = dev["fock"].device
     heff_b = torch.as_tensor(np.stack([
@@ -273,10 +384,12 @@ def _solve_bucket_batched(frs, solver, eeval, use_cumulant, relax_density,
         rdm1_b = make_rdm1_mp2(t2_mp, nemb)
         rdm2_b = make_rdm2_mp2(t2_mp, nemb) if eeval else None
     else:
-        # FCI: the Hamiltonians go down to the host, the RDMs come back
+        # FCI, SCI, DMRG: the Hamiltonians go down to the host, the RDMs
+        # come back
+        solve_ci = _HOST_CI[solver]
         rdm1_l, rdm2_l = [], []
         for h_mo, eri_mo in zip(*_mo_transform(C_b, h_b, eri_b)):
-            _, rdm1, rdm2 = solve_fci(h_mo, eri_mo, nsocc)
+            _, rdm1, rdm2 = solve_ci(h_mo, eri_mo, nsocc)
             if eeval and use_cumulant:
                 rdm2 = remove_mf_part(rdm1, rdm2, nsocc)
             rdm1_l.append(rdm1)
@@ -340,8 +453,7 @@ def solve_one_fragment(
     relax_density: bool = False,
 ):
     """Single-fragment solve (kept for probing/tests); updates fr in place."""
-    return _solve_bucket_batched([fr], solver, eeval, use_cumulant,
-                                 relax_density)
+    return _solve_bucket([fr], solver, eeval, use_cumulant, relax_density)
 
 
 def form_merge_classes(
@@ -357,7 +469,8 @@ def form_merge_classes(
     (22,20) bucket.  Each class is a list of ``(fragment, (pad_occ,
     pad_vir))`` pairs.  Solvers other than CCSD and MP2 (and relaxed
     densities) get the unmerged plan, one class per true (nao, nsocc)
-    shape with no pads.  The JAX function's ``QUEMB_TPU_MERGE_BUCKETS``
+    shape with no pads.  A class wider than ``_NEMB_BATCHED_MAX`` holds one
+    true shape and no pads.  The JAX function's ``QUEMB_TPU_MERGE_BUCKETS``
     switch is not carried: CCSD and MP2 always merge.
     """
     buckets: dict[tuple[int, int], list[Fragment]] = {}
@@ -421,7 +534,7 @@ def be_func(
     for pairs in merge_classes:
         frs = [fr for fr, _ in pairs]
         pads = tuple(p for _, p in pairs)
-        e_b = _solve_bucket_batched(
+        e_b = _solve_bucket(
             frs, solver, eeval, use_cumulant, relax_density, pads=pads
         )
         if eeval:

@@ -1,9 +1,10 @@
 """Closed-shell CCSD amplitude iteration, batched over fragments.
 
 JAX counterpart: ``quemb_tpu/solvers/rccsd.py`` (``_rdiis_stage``,
-``_rccsd_iterate``, ``_rccsd_from_mo_batched``).  The DIIS-accelerated
-loop drives :func:`quemb_tpu_torch.solvers.rccsd_mat.rccsd_update_mat`
-over a bucket held as a leading batch dimension.  Where the JAX module
+``_rccsd_iterate``, ``_rccsd_from_mo_batched``, ``rccsd_large``).  The
+DIIS-accelerated loop drives
+:func:`quemb_tpu_torch.solvers.rccsd_mat.rccsd_update_mat` over a bucket
+held as a leading batch dimension (one fragment for ``rccsd_large``).  Where the JAX module
 vmaps a ``lax.while_loop``, this one runs a Python loop until every lane
 has converged, and freezes a converged lane's state as ``vmap`` does, so
 that no lane drifts while the others iterate.  Each iteration reads one
@@ -22,7 +23,7 @@ import os
 import torch
 
 from quemb_tpu_torch.solvers.ccsd import DIIS_SPACE, _default_conv_tol, \
-    _diis_coeffs
+    _diis_coeffs, _f32_only
 from quemb_tpu_torch.solvers.rccsd_mat import rccsd_fused_blocks, \
     rccsd_update_mat
 
@@ -132,3 +133,17 @@ def _rccsd_from_mo_batched(eri_mo_b, moe_b, nsocc: int,
         return t1f.double(), t2f.double(), it, delta
     fb = rccsd_fused_blocks(eri_mo_b, nsocc)
     return _rccsd_iterate(moe_b[:, :nsocc], moe_b[:, nsocc:], fb)
+
+
+def rccsd_large(eri_mo, moe, nsocc: int):
+    """Closed-shell CCSD of one large fragment, no batch axis.
+
+    eri_mo [nmo]^4 chemist and moe [nmo], f64 tensors on the device that
+    runs it.  Returns (t1 [no, nv], t2 [no, no, nv, nv] there, n_iter,
+    delta); the precision follows :func:`_rccsd_from_mo_batched` under
+    ``QUEMB_TPU_CCSD_F32_ONLY``.
+    """
+    t1, t2, it, delta = _rccsd_from_mo_batched(
+        eri_mo[None], moe[None], nsocc, f32_only=_f32_only()
+    )
+    return t1[0], t2[0], int(it[0]), float(delta[0])

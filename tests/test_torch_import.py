@@ -15,6 +15,8 @@ MODULES = (
     "quemb_tpu_torch.chem.mole",
     "quemb_tpu_torch.chem.scf",
     "quemb_tpu_torch.chem.sph",
+    "quemb_tpu_torch.lo.iao",
+    "quemb_tpu_torch.lo.jacobi",
     "quemb_tpu_torch.matching.beopt",
     "quemb_tpu_torch.matching.cphf",
     "quemb_tpu_torch.matching.numerical_jac",
@@ -26,8 +28,11 @@ MODULES = (
     "quemb_tpu_torch.ops.screened_df",
     "quemb_tpu_torch.ops.sparse_df",
     "quemb_tpu_torch.solvers.dispatch",
+    "quemb_tpu_torch.solvers.dmrg",
     "quemb_tpu_torch.solvers.fci",
     "quemb_tpu_torch.solvers.mp2",
+    "quemb_tpu_torch.solvers.rccsd",
+    "quemb_tpu_torch.solvers.sci",
     "quemb_tpu_torch.utils.device",
     "quemb_tpu_torch.utils.geometry",
 )
@@ -54,7 +59,8 @@ def test_every_module_is_listed_and_names_no_jax():
     walked = dict(_walk())
     assert set(MODULES) <= set(walked)
     for m in ("native", "native.eri_native", "config", "utils.geometry",
-              "chem.integrals", "chem.sph"):
+              "chem.integrals", "chem.sph", "lo.iao", "lo.jacobi",
+              "solvers.sci", "solvers.dmrg"):
         assert f"quemb_tpu_torch.{m}" in MODULES
     bad = re.compile(
         r"^\s*(import|from)\s+(jax|quemb_tpu)(\.|\s|$)", re.MULTILINE

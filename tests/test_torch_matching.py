@@ -19,8 +19,9 @@ energies), never orbitals or CPHF solutions.
 
 The JAX package is imported inside the fixtures, so that the ``gpu`` tests
 (every bucket solver and every response on the card against the CPU on
-seeded fragments, and octane BE2-CCSD to its matched energy) also run
-where JAX is absent:
+seeded fragments, the fragment SCF and its DIIS solve with a non-finite
+lane, and octane BE2-CCSD to its matched energy) also run where JAX is
+absent:
 
     python -m pytest --noconftest -m gpu tests/test_torch_matching.py
 """
@@ -283,7 +284,7 @@ def test_optimize_value_errors(jax_side, h8, n_BE, match):
 
 def test_optimize_rejects_unported(jax_side, h8):
     _, be = _pair(jax_side, h8, 2)
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(NotImplementedError, match="A14"):
         be.optimize(solver="CCSD", relax_density=True)
     with pytest.raises(ValueError, match="Unsupported optimization"):
         be.optimize(solver="CCSD", method="Newton")
@@ -346,6 +347,76 @@ def test_responses_on_card_match_cpu(name):
              torch.as_tensor(eri, device="cuda"), no, vs)
     assert out.device.type == "cuda"
     assert np.abs(out.cpu().numpy() - ref.numpy()).max() < 1e-9
+
+
+@pytest.mark.gpu
+def test_diis_solve_non_finite_lane_on_card():
+    """The fragment SCF's DIIS solve on the card with non-finite lanes.
+
+    cuSOLVER's batched ``eigh`` fails for a whole batch that holds a
+    non-finite matrix (C40H82 matching met this), where the JAX package's
+    ``eigh`` gives that matrix NaN.  One NaN lane among finite ones:
+    nothing raises, its coefficients are NaN and the other lanes are
+    bit-equal to the same bucket without the NaN.  Then the case met on
+    the card, rebuilt from a seed (every lane's one history entry mostly
+    NaN): nothing raises and every lane is NaN."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from quemb_tpu_torch.embed.fragment_scf import _diis_solve
+
+    rng = np.random.default_rng(6)
+    nf, m = 4, 8
+    err = torch.as_tensor(np.stack([
+        rng.standard_normal((m, 3)) @ rng.standard_normal((3, 40))
+        + 0.1 * rng.standard_normal((m, 40)) for _ in range(nf)
+    ]), device="cuda")
+    fock = torch.eye(m, dtype=err.dtype, device="cuda").expand(nf, m, m)
+    nvalid = torch.tensor([3, 5, 8, 8], device="cuda")
+    c0 = _diis_solve(err, fock, nvalid)
+    bad = err.clone()
+    bad[1, 2, 7] = float("nan")
+    c = _diis_solve(bad, fock, nvalid)
+    assert c.device.type == "cuda"
+    assert torch.isfinite(c0).all() and torch.isnan(c[1]).all()
+    assert torch.equal(c[[0, 2, 3]], c0[[0, 2, 3]])
+
+    nn = 43 * 43
+    err = np.zeros((5, m, nn))
+    err[:, 0] = rng.standard_normal((5, nn)) * 1e-9
+    err[:, 0, rng.random(nn) < 0.74] = np.nan
+    fock = np.zeros((5, m, nn))
+    fock[:, 0] = np.nan
+    c = _diis_solve(torch.as_tensor(err, device="cuda"),
+                    torch.as_tensor(fock, device="cuda"),
+                    torch.ones(5, dtype=torch.long, device="cuda"))
+    assert c.shape == (5, nn) and torch.isnan(c).all()
+
+
+@pytest.mark.gpu
+def test_fragment_scf_non_finite_lane_on_card():
+    """The batched fragment SCF on the card with one lane's Fock not
+    finite: nothing raises, that lane's energies are NaN, and the other
+    lanes' orbital energies, orbitals, energies and iteration counts are
+    bit-equal to the same bucket with that lane finite."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from quemb_tpu_torch.embed import fragment_scf
+
+    frs = [_seeded_fragment(n=8, no=3, seed=s)[:3] for s in (20, 21, 22)]
+    h = torch.stack([torch.as_tensor((C * moe) @ C.T)
+                     for C, moe, _ in frs]).cuda()
+    # weakened so that each SCF converges (25-30 iterations)
+    eri = 0.2 * torch.stack([torch.as_tensor(e) for _, _, e in frs]).cuda()
+    dm0 = torch.stack([2.0 * torch.as_tensor(C[:, :3] @ C[:, :3].T)
+                       for C, _, _ in frs]).cuda()
+    clean = fragment_scf.rhf_orthonormal(h, eri, 3, dm0)
+    h[1, 0, 0] = float("nan")
+    out = fragment_scf.rhf_orthonormal(h, eri, 3, dm0)
+    assert bool((clean[3] < fragment_scf.MAX_CYCLE).all())
+    assert torch.isnan(out[2][1]) and torch.isnan(out[0][1]).all()
+    for a, b in zip(out, clean):
+        assert a.device.type == "cuda"
+        assert torch.equal(a[[0, 2]], b[[0, 2]])
 
 
 @pytest.mark.gpu

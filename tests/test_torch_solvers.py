@@ -307,12 +307,15 @@ def test_merge_plan_per_solver_matches_jax():
 
 
 def test_unported_paths_raise(h8_pair, monkeypatch):
+    """What the bucket solve still refuses: relaxed densities and the
+    spin-orbital CCSD (ROADMAP A14), the external SHCI/HCI solvers (the JAX
+    package's message) and unknown solvers."""
     _, be = h8_pair
     frs = be.fragments
-    for solver in ("SCI", "DMRG", "SHCI", "HCI"):
-        with pytest.raises(NotImplementedError, match="A9"):
+    for solver in ("SHCI", "HCI"):
+        with pytest.raises(NotImplementedError, match="cornell_shci"):
             dispatch.be_func(None, frs, be.Nocc, solver)
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(NotImplementedError, match="A14"):
         dispatch.be_func(None, frs, be.Nocc, "CCSD", relax_density=True)
     with pytest.raises(NotImplementedError, match="not implemented"):
         dispatch.be_func(None, frs, be.Nocc, "CISD")
@@ -320,5 +323,5 @@ def test_unported_paths_raise(h8_pair, monkeypatch):
         dispatch._solve_bucket_batched(frs[:1], "FCI", False, True, False,
                                        pads=((1, 0),))
     monkeypatch.setenv("QUEMB_TPU_CCSD_SPINORB", "1")
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(NotImplementedError, match="A14"):
         dispatch.be_func(None, frs, be.Nocc, "CCSD")

@@ -3,6 +3,7 @@ NVIDIA card.
 
     python3 tools/profile_port.py [--parts NAME[,NAME...]] [--trace PATH]
         [--chain-runs N] [--identify-aux] [--chain-optimize]
+        [--dump-dir DIR]
 
 Four octane parts (run unless ``--parts`` names others) and the part
 ``chain`` (run only when named), printed as JSON lines (plus the profiler
@@ -61,8 +62,13 @@ tables):
   the default even-tempered factor (naux 8740, 5.6 GB, minutes on the
   host) and prints the energy of the fixture's density under it beside the
   fixture's ``e_tot``.  ``--chain-optimize`` also runs
-  ``BE.optimize(solver="CCSD")`` on the f64 sparse-DF route and prints its
-  Jacobian and matching walls and the matched energies.
+  ``BE.optimize(solver="CCSD")`` on the f64 sparse-DF route for 3
+  quasi-Newton steps, once with the line search and once with the trust
+  region, and prints the Jacobian's wall, each run's wall and energies,
+  and every objective evaluation's wall, error norm and largest potential
+  with the fragments whose SCF or CCSD left the finite numbers.  The
+  first such fragments' inputs go to ``chain_nonfinite_fragments.npz`` in
+  ``--dump-dir`` (default ``profile_out/``).
 
 Device time is summed over the profiler's device events (kernels, copies,
 memsets) without its own buffer events; an operator's row in
@@ -77,6 +83,8 @@ import json
 import os
 import sys
 import time
+import traceback
+import warnings
 
 import numpy as np
 import torch
@@ -86,7 +94,7 @@ sys.path.insert(0, ROOT)
 
 from chip_smoke import (  # noqa: E402
     ECORR_MATCHED_REF, ETOT_MATCHED_REF, FIXTURE, XYZ, c40_case, call_bound,
-    card_line, device_ms, fragment_bases,
+    card_line, device_ms, fragment_bases, wall,
 )
 
 N_PROFILED = 20  # calls of each kernel version under the profiler
@@ -95,6 +103,8 @@ TOP_OPS = 12  # operators and kernels listed by device time
 #: kept blocks of the C40 cases of part ``kernel``, a centred window each
 #: (8: chip_smoke's window, 18: every block, the ragged tail included)
 C40_KEPT = (8, 10, 11, 12, 14, 18)
+#: quasi-Newton steps of each ``--chain-optimize`` run
+CHAIN_QN_STEPS = 3
 #: device events the profiler records for its own buffers
 PROFILER_OVERHEAD = {"Activity Buffer Request", "Buffer Flush"}
 
@@ -629,11 +639,11 @@ def profile_matching(mf, fobj, card):
         del os.environ["QUEMB_TPU_CCSD_F32_ONLY"]
 
 
-def profile_chain(card, runs, identify_aux, chain_optimize):
+def profile_chain(card, runs, identify_aux, chain_optimize, dump_dir):
     import quemb_tpu_torch as qt
     from chip_smoke import (
         C40_AUX, C40_CCSD_CONV_TOL, C40_CCSD_MAX_CYCLE, C40_FIXTURE,
-        FLUSH_BYTES, chain_mean_field, chain_transforms, wall,
+        FLUSH_BYTES, chain_mean_field, chain_transforms,
     )
     from quemb_tpu_torch.ops import screened_df as sd
     from quemb_tpu_torch.ops import sparse_df as tsdf
@@ -731,23 +741,96 @@ def profile_chain(card, runs, identify_aux, chain_optimize):
             "jacobian_shape": list(J.shape),
             "jacobian_finite": bool(np.all(np.isfinite(J))),
         }), flush=True)
-        # reported, not gated: no matched energy of record exists for the
-        # chain, so a solver failure is printed and the part goes on
-        try:
-            _, opt_s = wall(lambda: be.optimize(solver="CCSD"))
-        except RuntimeError as exc:  # torch.linalg.LinAlgError is one
-            print(json.dumps({
-                "part": "chain", "what": "optimize", "card": card,
-                "failed": f"{type(exc).__name__}: {str(exc)[:300]}",
-            }), flush=True)
-        else:
-            print(json.dumps({
-                "part": "chain", "what": "optimize", "card": card,
-                "optimize_s": opt_s, "etot": be.ebe_tot,
-                "ecorr": be.ebe_tot - be.ebe_hf,
-            }), flush=True)
+        _chain_optimize(be, card, dump_dir)
         del be, J
         torch.cuda.empty_cache()
+
+
+def _fragment_state(fragments) -> dict:
+    """Which fragments' SCF orbitals or CCSD amplitudes are not finite, and
+    the smallest HOMO-LUMO gap of the fragment SCFs."""
+    scf, cc, gaps = [], [], []
+    for i, fr in enumerate(fragments):
+        moe = np.asarray(fr.mo_energy)
+        if not (np.all(np.isfinite(fr.mo_coeffs)) and np.all(
+                np.isfinite(moe))):
+            scf.append(i)
+        elif not bool(torch.isfinite(fr.t2).all()):
+            cc.append(i)
+        if np.all(np.isfinite(moe)):
+            gaps.append(float(moe[fr.nsocc] - moe[fr.nsocc - 1]))
+    return dict(nonfinite_scf=scf, nonfinite_ccsd=cc,
+                min_gap=min(gaps) if gaps else None)
+
+
+def _chain_optimize(be, card, dump_dir):
+    """``be.optimize(solver="CCSD")`` at the chain, capped at
+    ``CHAIN_QN_STEPS`` quasi-Newton steps, with the line search and then with the trust
+    region; a line each with every objective evaluation's wall, error
+    norm, largest potential and the fragments whose SCF or CCSD left the
+    finite numbers.  The chain has no matched energy of record, so the
+    runs are reported, not gated."""
+    from quemb_tpu_torch.matching import beopt
+    from quemb_tpu_torch.solvers import dispatch as D
+
+    evals = []
+
+    dump_path = os.path.join(dump_dir, "chain_nonfinite_fragments.npz")
+
+    def timed_be_func(pot, fragments, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ret = D.be_func(pot, fragments, *args, **kwargs)
+        torch.cuda.synchronize()
+        state = _fragment_state(fragments)
+        evals.append(dict(wall_s=time.perf_counter() - t0,
+                          error_norm=float(ret[0]),
+                          max_abs_potential=float(np.abs(pot).max()),
+                          **state))
+        bad = state["nonfinite_ccsd"] + state["nonfinite_scf"]
+        if bad and not os.path.exists(dump_path):
+            # the first fragments whose solve left the finite numbers, with
+            # what their solve started from, for a rerun elsewhere
+            keep = [fragments[i] for i in bad[:2]]
+            os.makedirs(dump_dir, exist_ok=True)
+            np.savez(dump_path, pot=np.asarray(pot), index=np.array(bad[:2]),
+                     nsocc=np.array([fr.nsocc for fr in keep]),
+                     **{f"{name}_{k}": np.asarray(
+                         getattr(fr, name).cpu() if name == "eri"
+                         else getattr(fr, name))
+                        for k, fr in enumerate(keep)
+                        for name in ("eri", "fock", "heff", "dm0", "h1",
+                                     "veff0")})
+        return ret
+
+    beopt.be_func = timed_be_func
+    try:
+        for trust_region in (False, True):
+            evals.clear()
+            line = {"part": "chain", "card": card,
+                    "qn_steps_cap": CHAIN_QN_STEPS,
+                    "what": "optimize_trust_region" if trust_region
+                    else "optimize"}
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    _, line["optimize_s"] = wall(lambda: be.optimize(
+                        solver="CCSD", max_iter=CHAIN_QN_STEPS,
+                        trust_region=trust_region))
+                line.update(etot=be.ebe_tot, ecorr=be.ebe_tot - be.ebe_hf,
+                            warnings=sorted({str(w.message)[:120]
+                                             for w in caught}))
+            except torch.linalg.LinAlgError as exc:
+                line["failed"] = f"{type(exc).__name__}: {str(exc)[:300]}"
+                line["where"] = [
+                    f"{f.filename.rsplit('/', 1)[-1]}:{f.lineno} {f.name}"
+                    for f in traceback.extract_tb(exc.__traceback__)]
+            line.update(evaluations=evals,
+                        all_error_norms_finite=bool(all(
+                            np.isfinite(e["error_norm"]) for e in evals)))
+            print(json.dumps(line), flush=True)
+    finally:
+        beopt.be_func = D.be_func
 
 
 OCTANE_PARTS = ("kernel", "kernel_parts", "objective", "matching")
@@ -768,6 +851,9 @@ def main():
     ap.add_argument("--chain-optimize", action="store_true",
                     help="chain: density matching on the f64 sparse-DF"
                     " route")
+    ap.add_argument("--dump-dir", default=os.path.join(ROOT, "profile_out"),
+                    help="chain: where --chain-optimize writes the inputs"
+                    " of fragments that left the finite numbers")
     args = ap.parse_args()
     parts = args.parts.split(",")
     if not set(parts) <= set(PARTS):
@@ -792,7 +878,7 @@ def main():
         profile_matching(mf, fobj, card)
     if "chain" in parts:
         profile_chain(card, args.chain_runs, args.identify_aux,
-                      args.chain_optimize)
+                      args.chain_optimize, args.dump_dir)
 
 
 if __name__ == "__main__":

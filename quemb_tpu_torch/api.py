@@ -44,6 +44,7 @@ from quemb_tpu_torch.lo.jacobi import get_loc
 from quemb_tpu_torch.lo.lowdin import lowdin_orth
 from quemb_tpu_torch.matching.beopt import BEOPT
 from quemb_tpu_torch.matching.cphf import get_be_error_jacobian
+from quemb_tpu_torch.ops.df import _free_bytes, df_transform_batched
 from quemb_tpu_torch.ops.eri_transform import batched_mo_eri
 from quemb_tpu_torch.solvers.dispatch import be_func
 from quemb_tpu_torch.utils.device import resolve_device
@@ -68,6 +69,85 @@ def _init_bucket_device(eri_b, P_emb_b, h1_b, veff0_b, dm0_b, nsocc: int):
     K = torch.einsum("fijkl,fjl->fik", eri_b, rdm_hf)
     e2 = 2.0 * (J * rdm_hf).sum(-1) - (K * rdm_hf).sum(-1)
     return veff, moe, C, e1 + ec + e2
+
+
+def _memory_chunks(items: list, per_item: float, device: torch.device):
+    """Consecutive runs of ``items``, each as long as ``per_item`` bytes an
+    item fit into half the device's free memory, read anew before every
+    run; one run on the CPU."""
+    i = 0
+    while i < len(items):
+        free = _free_bytes(device)
+        n = len(items) if free == float("inf") else max(
+            1, int(0.5 * free // per_item))
+        yield items[i : i + n]
+        i += n
+
+
+def _cd_fragment_eris(B: torch.Tensor, TAs: list) -> list[torch.Tensor]:
+    """Fragment ERIs from the pivoted-CD factor B [rank, nao, nao] on the
+    device, for host bases TAs [nao, nemb_f] padded to the widest: as many
+    fragments a pass as fit their output, one partial sum and the
+    half-transformed factor (:func:`df_transform_batched`)."""
+    naux, nao, _ = B.shape
+    ne = max(TA.shape[1] for TA in TAs)
+    per = 8.0 * (2 * ne ** 4 + naux * ne * (nao + 2 * ne))
+    eris = []
+    for part in _memory_chunks(TAs, per, B.device):
+        TA_b = torch.as_tensor(np.stack([
+            np.pad(TA, ((0, 0), (0, ne - TA.shape[1]))) for TA in part
+        ]), device=B.device)
+        eri_b = df_transform_batched(B, TA_b)
+        for k, TA in enumerate(part):
+            n = TA.shape[1]
+            eris.append(eri_b[k, :n, :n, :n, :n].contiguous())
+        del eri_b
+    return eris
+
+
+def _init_fragment_buckets(frs: list, device: torch.device) -> float:
+    """Fragment initialization (:func:`_init_bucket_device`) per (nemb,
+    nsocc) bucket on ``device``, in runs that fit three stacked ERIs a
+    fragment into half the free memory (the stack and the einsum and SCF
+    temporaries).  Reads ``eri``, ``_P_emb``, ``h1``, ``veff0``, ``dm0``
+    and ``weight_and_relAO_per_center``; sets ``veff``, ``fock``,
+    ``_mo_coeffs``, ``dm0`` and ``ebe_hf``.  Returns the summed HF-in-HF
+    fragment energy."""
+    buckets: dict[tuple[int, int], list] = {}
+    for fr in frs:
+        buckets.setdefault((fr.nao, fr.nsocc), []).append(fr)
+    E_hf = 0.0
+    for (nemb, nsocc), frs_all in buckets.items():
+        for run in _memory_chunks(frs_all, 3 * 8.0 * nemb ** 4, device):
+            E_hf += _init_bucket(run, nsocc, device)
+    return E_hf
+
+
+def _init_bucket(frs: list, nsocc: int, device: torch.device) -> float:
+    def stack(name):
+        return torch.as_tensor(
+            np.stack([getattr(fr, name) for fr in frs]), device=device
+        )
+
+    veff_b, moe_b, C_b, erows_b = (
+        t.cpu().numpy()
+        for t in _init_bucket_device(
+            torch.stack([fr.eri for fr in frs]),
+            stack("_P_emb"), stack("h1"), stack("veff0"), stack("dm0"),
+            nsocc,
+        )
+    )
+    E_hf = 0.0
+    for k, fr in enumerate(frs):
+        fr.veff = veff_b[k]
+        fr.fock = fr.h1 + fr.veff
+        fr._mo_coeffs = C_b[k]
+        fr.dm0 = 2.0 * (C_b[k][:, :nsocc] @ C_b[k][:, :nsocc].T)
+        w, idx = fr.weight_and_relAO_per_center
+        fr.ebe_hf = float(w * erows_b[k][list(idx)].sum())
+        E_hf += fr.ebe_hf
+        del fr._P_emb
+    return E_hf
 
 
 def fragmentate(
@@ -238,6 +318,7 @@ class BE:
         self.fobj = fobj
         self.thr_bath = thr_bath
         self.mol = mf.mol
+        self.unrestricted = False
         self.ebe_hf = 0.0
         self.ebe_tot = 0.0
         self.frozen_core = fobj.frozen_core
@@ -248,6 +329,11 @@ class BE:
         self.pot = initialize_pot(
             fobj.n_frag, fobj.relAO_per_edge_per_frag
         )
+
+    @property
+    def Fobjs(self) -> list[Fragment]:
+        """The fragments under the reference's attribute name."""
+        return self.fragments
 
     def _incore_via_cd(self) -> bool:
         """Route the in-core ERI transform through the pivoted-CD factor?
@@ -452,36 +538,34 @@ class BE:
             # compress the AO ERI by diagonal-pivoted Cholesky (every
             # element exact to 1e-10) and run all fragment transforms as
             # one batched device computation; the ERIs stay on the device
-            from quemb_tpu_torch.ops.df import cholesky_df_factor, \
-                df_transform_batched
+            from quemb_tpu_torch.ops.df import cholesky_df_factor
 
             B = cholesky_df_factor(self.mol, tol=1.0e-10,
                                    eri=self.mf.get_eri())
-            B_dev = torch.as_tensor(B, device=dev)
-            ne_max = max(fr.TA.shape[1] for fr in self.fragments)
-            TA_b = torch.as_tensor(np.stack([
-                np.pad(fr.TA, ((0, 0), (0, ne_max - fr.TA.shape[1])))
-                for fr in self.fragments
-            ]), device=dev)
-            eri_b = df_transform_batched(B_dev, TA_b)
-            for k, fr in enumerate(self.fragments):
-                n = fr.TA.shape[1]
-                fr.eri = eri_b[k, :n, :n, :n, :n].contiguous()
+            eris = _cd_fragment_eris(torch.as_tensor(B, device=dev),
+                                     [fr.TA for fr in self.fragments])
+            for fr, eri in zip(self.fragments, eris):
+                fr.eri = eri
         else:
             from quemb_tpu_torch.ops.eri_transform import \
                 incore_transform_batched
 
             eri_ao = torch.as_tensor(self.mf.get_eri(), device=dev)
+            nao = eri_ao.shape[0]
             buckets: dict[int, list[Fragment]] = {}
             for fr in self.fragments:
                 buckets.setdefault(fr.nao, []).append(fr)
-            for frs in buckets.values():
-                TA_b = torch.as_tensor(
-                    np.stack([fr.TA for fr in frs]), device=dev
-                )
-                eri_b = incore_transform_batched(eri_ao, TA_b)
-                for fr, eri in zip(frs, eri_b):
-                    fr.eri = eri
+            for n, frs_all in buckets.items():
+                # the four quarter-transformed intermediates of a fragment
+                per = 8.0 * n * (nao ** 3 + n * nao ** 2 + n * n * nao
+                                 + n ** 3)
+                for frs in _memory_chunks(frs_all, per, dev):
+                    TA_b = torch.as_tensor(
+                        np.stack([fr.TA for fr in frs]), device=dev
+                    )
+                    eri_b = incore_transform_batched(eri_ao, TA_b)
+                    for fr, eri in zip(frs, eri_b):
+                        fr.eri = eri
         logger.info("init: ERI transform %.2fs", time.perf_counter() - t0)
         t0 = time.perf_counter()
 
@@ -523,41 +607,7 @@ class BE:
                 fr._mo_coeffs[:, : fr.nsocc]
                 @ fr._mo_coeffs[:, : fr.nsocc].T
             )
-        buckets: dict[tuple[int, int], list[Fragment]] = {}
-        for fr in self.fragments:
-            buckets.setdefault((fr.nao, fr.nsocc), []).append(fr)
-        return sum(
-            self._init_bucket(frs, nsocc)
-            for (_, nsocc), frs in buckets.items()
-        )
-
-    def _init_bucket(self, frs, nsocc) -> float:
-        dev = self.device
-
-        def stack(name):
-            return torch.as_tensor(
-                np.stack([getattr(fr, name) for fr in frs]), device=dev
-            )
-
-        veff_b, moe_b, C_b, erows_b = (
-            t.cpu().numpy()
-            for t in _init_bucket_device(
-                torch.stack([fr.eri for fr in frs]),
-                stack("_P_emb"), stack("h1"), stack("veff0"), stack("dm0"),
-                nsocc,
-            )
-        )
-        E_hf = 0.0
-        for k, fr in enumerate(frs):
-            fr.veff = veff_b[k]
-            fr.fock = fr.h1 + fr.veff
-            fr._mo_coeffs = C_b[k]
-            fr.dm0 = 2.0 * (C_b[k][:, :nsocc] @ C_b[k][:, :nsocc].T)
-            w, idx = fr.weight_and_relAO_per_center
-            fr.ebe_hf = float(w * erows_b[k][list(idx)].sum())
-            E_hf += fr.ebe_hf
-            del fr._P_emb
-        return E_hf
+        return _init_fragment_buckets(self.fragments, self.device)
 
     # -------------------------------------------------------------- oneshot
     def oneshot(

@@ -15,8 +15,8 @@ fixture (:func:`load_fixture`).  The accessors hand back host numpy.
 The JAX module's host-backend context around the SCF loop is not carried
 over (the loop runs where the mean field lives), the dense ERI and the
 factor are copied to the device once, and S^(-1/2) is built once per SCF
-instead of once per diagonalization (the same numbers).  ``UHF`` is ROADMAP
-A14.
+instead of once per diagonalization (the same numbers).  :class:`UHF`
+runs on the dense AO ERI, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -316,13 +316,109 @@ def _scf_loop(hcore, S, jk, nocc, dm0, conv_tol, max_cycle, diis_size=8):
 
 
 class UHF(RHF):
-    """Unrestricted Hartree-Fock: not ported (ROADMAP A14)."""
+    """Unrestricted Hartree-Fock; spin = Nalpha - Nbeta from the Mole.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "UHF is not ported: it arrives with unrestricted BE"
-            " (ROADMAP A14)"
-        )
+    J/K from the dense AO ERI on the mean field's device; ``mo_coeff``
+    and ``mo_energy`` are stacked [alpha, beta] host arrays, and
+    ``make_rdm1`` / ``get_veff`` give [2, nao, nao] (occupancy 1 per
+    spin).  The SCF starts from the core-Hamiltonian guess and
+    extrapolates the concatenated alpha/beta Fock by DIIS over the last 8
+    concatenated commutators, as the JAX class does.
+    """
+
+    @property
+    def nelec(self) -> tuple[int, int]:
+        n = self.mol.nelectron
+        s = self.mol.spin
+        if (n + s) % 2:
+            raise ValueError("inconsistent charge/spin")
+        return ((n + s) // 2, (n - s) // 2)
+
+    def make_rdm1(self) -> np.ndarray:
+        na, nb = self.nelec
+        Ca = self.mo_coeff[0][:, :na]
+        Cb = self.mo_coeff[1][:, :nb]
+        return np.stack([Ca @ Ca.T, Cb @ Cb.T])
+
+    @property
+    def mo_occ(self) -> np.ndarray:
+        na, nb = self.nelec
+        occ = np.zeros((2, self.mol.nao))
+        occ[0, :na] = 1.0
+        occ[1, :nb] = 1.0
+        return occ
+
+    def _veff_spin(self, dma: torch.Tensor, dmb: torch.Tensor):
+        """(Fa - hcore, Fb - hcore): J of the total density minus the
+        exchange of each spin."""
+        eri = self.get_eri_dev()
+        vj = torch.tensordot(eri, dma + dmb, dims=([2, 3], [0, 1]))
+        vka = torch.tensordot(eri, dma, dims=([1, 3], [0, 1]))
+        vkb = torch.tensordot(eri, dmb, dims=([1, 3], [0, 1]))
+        return vj - vka, vj - vkb
+
+    def get_veff(self, dm: np.ndarray | None = None) -> np.ndarray:
+        """[2, nao, nao] spin potentials: J(total) - K(sigma)."""
+        if dm is None:
+            dm = self.make_rdm1()
+        dm = torch.as_tensor(np.asarray(dm, np.float64), device=self.device)
+        return torch.stack(self._veff_spin(dm[0], dm[1])).cpu().numpy()
+
+    def kernel(self, dm0: np.ndarray | None = None) -> float:
+        dev = self.device
+        hcore = torch.as_tensor(self.get_hcore(), device=dev)
+        S = torch.as_tensor(self.get_ovlp(), device=dev)
+        X = _orthogonalizer(S)
+        na, nb = self.nelec
+        if dm0 is None:
+            _, C = _eigh_gen(hcore, S, X)
+            dma = C[:, :na] @ C[:, :na].T
+            dmb = C[:, :nb] @ C[:, :nb].T
+        else:
+            dma, dmb = torch.as_tensor(np.asarray(dm0, np.float64),
+                                       device=dev)
+        n = hcore.shape[0]
+        e_last = 0.0
+        errs: list = []
+        focks: list = []
+        self.converged = False
+        for cycle in range(self.max_cycle):
+            va, vb = self._veff_spin(dma, dmb)
+            Fa, Fb = hcore + va, hcore + vb
+            e_el = 0.5 * float(((hcore + Fa) * dma).sum()
+                               + ((hcore + Fb) * dmb).sum())
+            errs.append(torch.cat([(Fa @ dma @ S - S @ dma @ Fa).reshape(-1),
+                                   (Fb @ dmb @ S - S @ dmb @ Fb).reshape(-1)]))
+            focks.append(torch.cat([Fa.reshape(-1), Fb.reshape(-1)]))
+            if len(errs) > 8:
+                errs.pop(0)
+                focks.pop(0)
+            if len(errs) > 1:
+                Fx = _diis_extrapolate(errs, focks)
+                Fa, Fb = Fx[: n * n].reshape(n, n), Fx[n * n:].reshape(n, n)
+            ea, Ca = _eigh_gen(Fa, S, X)
+            eb, Cb = _eigh_gen(Fb, S, X)
+            dma_new = Ca[:, :na] @ Ca[:, :na].T
+            dmb_new = Cb[:, :nb] @ Cb[:, :nb].T
+            delta = float(torch.maximum((dma_new - dma).abs().max(),
+                                        (dmb_new - dmb).abs().max()))
+            dma, dmb = dma_new, dmb_new
+            self.cycles = cycle + 1
+            if (
+                abs(e_el - e_last) < self.conv_tol
+                and delta < np.sqrt(self.conv_tol) * 10
+                and cycle > 1
+            ):
+                self.converged = True
+                break
+            e_last = e_el
+        self.mo_energy = torch.stack([ea, eb]).cpu().numpy()
+        self.mo_coeff = torch.stack([Ca, Cb]).cpu().numpy()
+        va, vb = self._veff_spin(dma, dmb)
+        e_el = 0.5 * float(((2.0 * hcore + va) * dma).sum()
+                           + ((2.0 * hcore + vb) * dmb).sum())
+        self.e_tot = e_el + self.energy_nuc()
+        return self.e_tot
 
 
 def _diis_extrapolate(errs, focks):

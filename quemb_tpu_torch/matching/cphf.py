@@ -1,10 +1,11 @@
 """Coupled-perturbed HF response + analytic BE Jacobian assembly.
 
-JAX counterpart: ``quemb_tpu/matching/cphf.py`` (restricted part; its
-unrestricted functions are ROADMAP A14).  Reimplements the reference's
-``shared/external/cphf_utils.py`` (batched CPHF kernel) and
+JAX counterpart: ``quemb_tpu/matching/cphf.py``.  Reimplements the
+reference's ``shared/external/cphf_utils.py`` (batched CPHF kernel) and
 ``shared/external/optqn.py:250-491`` (block Jacobian of the matching
-conditions).
+conditions), and the unrestricted CP-UHF and UMP2 responses
+(:func:`cphf_kernel_batch_u`, :func:`_dPmp2_batch_u`), which no driver
+calls, in either package.
 
 All responses of one fragment are computed on the device of ``fr.eri``
 with the matching potentials as a leading batch axis, and come back as host
@@ -21,7 +22,7 @@ Differences from the JAX module, none of them in what is computed:
   the JAX module transforms the AO tensor again for every differentiated
   slot.
 - ``jax.vmap`` over potentials is a leading axis, processed ``_POT_CHUNK``
-  potentials at a time.
+  potentials at a time; the unrestricted MP2 response loops over them.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import torch
 from quemb_tpu_torch.embed.fragment import Fragment
 from quemb_tpu_torch.solvers.dispatch import _batched_mo_eri, \
     run_fragment_scf
+from quemb_tpu_torch.solvers.uccsd import _mo4
 
 #: potentials per batch of the MP2 and CCSD responses.  The largest
 #: per-potential tensors are the rotated MO integrals, nemb^4 doubles each
@@ -90,6 +92,182 @@ def get_rhf_dP_from_u(C, no, u):
     uov = u.reshape(u.shape[:-1] + (no, nv))
     dP = -C[:, :no] @ uov @ C[:, no:].T
     return dP + dP.transpose(-1, -2)
+
+
+def _spin_pair(eri: torch.Tensor, X):
+    """(X[alpha], X[beta]) as tensors on the device of ``eri``, from a
+    stacked array or a pair."""
+    return tuple(_on_device_of(eri, X[s])[0] for s in (0, 1))
+
+
+def cphf_kernel_batch_u(C, moe, eri, no, vs):
+    """Coupled-perturbed UHF: alpha/beta responses for many perturbations.
+
+    Own formulation of the reference's CP-UHF surface
+    (``shared/external/cphf_utils.py:272-433``), as in the JAX function:
+    the two spin channels' occupied-virtual rotations couple through the
+    total-density Coulomb response (factor 2, both spins) while exchange
+    stays same-spin, so the linear system is one 2x2 spin-blocked matrix,
+    solved for all perturbations at once (LU, on the device).
+
+    C = (Ca, Cb), moe = (ea, eb), no = (no_a, no_b); ``eri`` is one
+    spinless AO ERI or the (aa, bb, ab) spin triplet, tensors whose device
+    does the work; ``vs`` is [npot, n, n] (spinless) or [npot, 2, n, n].
+    Returns us [npot, no_a*nv_a + no_b*nv_b], a tensor on that device.
+    """
+    Vs = tuple(eri) if isinstance(eri, (list, tuple)) else (eri,) * 3
+    C, moe = _spin_pair(Vs[0], C), _spin_pair(Vs[0], moe)
+    Co = [C[s][:, : no[s]] for s in (0, 1)]
+    Cv = [C[s][:, no[s] :] for s in (0, 1)]
+    nov = [Co[s].shape[1] * Cv[s].shape[1] for s in (0, 1)]
+
+    blocks = []
+    for s in (0, 1):
+        Voo = _mo4(Vs[s], Co[s], Cv[s], Co[s], Cv[s])
+        Vexch = _mo4(Vs[s], Co[s], Co[s], Cv[s], Cv[s])
+        Ass = (
+            2.0 * Voo
+            - Voo.permute(0, 3, 2, 1)
+            - Vexch.permute(0, 2, 1, 3)
+        ).reshape(nov[s], nov[s])
+        D = (moe[s][: no[s], None] - moe[s][None, no[s] :]).reshape(-1)
+        blocks.append(Ass - torch.diag(D))
+    Vab = 2.0 * _mo4(Vs[2], Co[0], Cv[0], Co[1], Cv[1]).reshape(nov[0],
+                                                                nov[1])
+    A = torch.cat([torch.cat([blocks[0], Vab], 1),
+                   torch.cat([Vab.T, blocks[1]], 1)])
+
+    vs, = _on_device_of(Vs[0], vs)
+    if vs.ndim == 3:  # spinless potentials act on both spins
+        vs = torch.stack([vs, vs], 1)
+    b = torch.cat([
+        (Co[s].T @ vs[:, s] @ Cv[s]).reshape(len(vs), nov[s])
+        for s in (0, 1)
+    ], 1)
+    return torch.linalg.solve(A, b.T).T
+
+
+def get_uhf_dP_from_u(C, no, u):
+    """Per-spin AO density responses [dPa, dPb] from a stacked CP-UHF
+    solution u [no_a*nv_a + no_b*nv_b] (a tensor)."""
+    C = _spin_pair(u, C)
+    nov0 = no[0] * (C[0].shape[1] - no[0])
+    out = []
+    for s, u_s in ((0, u[:nov0]), (1, u[nov0:])):
+        Co, Cv = C[s][:, : no[s]], C[s][:, no[s] :]
+        dP = -Co @ u_s.reshape(no[s], -1) @ Cv.T
+        out.append(dP + dP.T)
+    return out
+
+
+def _dPmp2_batch_u(C, moe, eri, no, vs):
+    """Analytic UMP2 density response per spin for many perturbations.
+
+    Unrestricted analog of :func:`_dPmp2_batch` (the reference surface
+    ``shared/external/cpmp2_utils.py:278 get_dPmp2_batch_u``), as in the
+    JAX function: CP-UHF orbital response + per-spin Fock derivatives +
+    same-/opposite-spin amplitude derivatives, assembled one perturbation
+    at a time.  ``eri`` is one spinless AO ERI, a tensor whose device does
+    the work; occupations are 1, so there is no restricted x2.  Returns a
+    tensor [npot, 2, n, n] of AO-basis densities dP^sigma/dlambda of
+    P^sigma = C^sigma (P_HF + P_MP2)^sigma C^sigma^T.
+    """
+    Cs, moes = _spin_pair(eri, C), _spin_pair(eri, moe)
+    n = Cs[0].shape[0]
+    nv = [n - no[s] for s in (0, 1)]
+    Co = [Cs[s][:, : no[s]] for s in (0, 1)]
+    Cv = [Cs[s][:, no[s] :] for s in (0, 1)]
+    es = torch.einsum
+
+    def ovov(s, t, c1=None, c2=None, c3=None, c4=None):
+        return _mo4(eri, Co[s] if c1 is None else c1,
+                    Cv[s] if c2 is None else c2,
+                    Co[t] if c3 is None else c3,
+                    Cv[t] if c4 is None else c4)
+
+    eia = [moes[s][: no[s], None] - moes[s][None, no[s] :] for s in (0, 1)]
+
+    def Dpair(s, t):
+        return eia[s][:, :, None, None] + eia[t][None, None, :, :]
+
+    V = {(s, t): ovov(s, t) for s in (0, 1) for t in (0, 1) if s <= t}
+    # amplitudes: same-spin antisymmetrized, opposite-spin plain
+    T = {(s, s): (V[(s, s)] - V[(s, s)].permute(0, 3, 2, 1)) / Dpair(s, s)
+         for s in (0, 1)}
+    T[(0, 1)] = V[(0, 1)] / Dpair(0, 1)
+
+    def pcorr_blocks(s, Tss_l, Tss_r, Tos_l, Tos_r):
+        """A[i,m]/A[a,c] halves of the MP2 density quadratics for spin s
+        (the caller adds the transpose to complete the product rule)."""
+        if s == 0:
+            oo = es("iajb,majb->im", Tos_l, Tos_r)
+            vv = es("iajb,icjb->ac", Tos_l, Tos_r)
+        else:
+            oo = es("jbia,jbma->im", Tos_l, Tos_r)
+            vv = es("jbia,jbic->ac", Tos_l, Tos_r)
+        Poo = -(0.5 * es("iajb,majb->im", Tss_l, Tss_r) + oo)
+        Pvv = 0.5 * es("iajb,icjb->ac", Tss_l, Tss_r) + vv
+        return torch.block_diag(Poo, Pvv)
+
+    P = []
+    for s in (0, 1):
+        # for l == r the quadratic is already the full (symmetric) value
+        full = pcorr_blocks(s, T[(s, s)], T[(s, s)], T[(0, 1)], T[(0, 1)])
+        occ = torch.cat([full.new_ones(no[s]), full.new_zeros(nv[s])])
+        P.append(full + torch.diag(occ))
+
+    us = cphf_kernel_batch_u(Cs, moes, eri, no, vs)
+    vs, = _on_device_of(eri, vs)
+    nov0 = no[0] * nv[0]
+
+    def one(u, Q):
+        uov = [u[:nov0].reshape(no[0], nv[0]),
+               u[nov0:].reshape(no[1], nv[1])]
+        dP_hf = get_uhf_dP_from_u(Cs, no, u)
+        vj = torch.tensordot(eri, dP_hf[0] + dP_hf[1], dims=([2, 3], [0, 1]))
+        dF, U, dC = [], [], []
+        for s in (0, 1):
+            vk = torch.tensordot(eri, dP_hf[s], dims=([1, 3], [0, 1]))
+            dFs = Q + vj - vk
+            dF.append(dFs)
+            eo, ev = moes[s][: no[s]], moes[s][no[s] :]
+            eye_o = torch.eye(no[s], dtype=eo.dtype, device=eo.device)
+            eye_v = torch.eye(nv[s], dtype=eo.dtype, device=eo.device)
+            Dij = -eo[:, None] + eo[None, :] + eye_o
+            dUoo = (Co[s].T @ dFs @ Co[s]) / Dij * (1.0 - eye_o)
+            Dab = -ev[:, None] + ev[None, :] + eye_v
+            dUvv = (Cv[s].T @ dFs @ Cv[s]) / Dab * (1.0 - eye_v)
+            U.append(torch.cat([torch.cat([dUoo, uov[s]], 1),
+                                torch.cat([-uov[s].T, dUvv], 1)]))
+            dC.append(Cs[s] @ U[s])
+        dmoe = [es("pi,qi,pq->i", Cs[s], Cs[s], dF[s]) for s in (0, 1)]
+        deia = [dmoe[s][: no[s], None] - dmoe[s][None, no[s] :]
+                for s in (0, 1)]
+        dCo = [dC[x][:, : no[x]] for x in (0, 1)]
+        dCv = [dC[x][:, no[x] :] for x in (0, 1)]
+
+        def dV(s, t):
+            return (ovov(s, t, c1=dCo[s]) + ovov(s, t, c2=dCv[s])
+                    + ovov(s, t, c3=dCo[t]) + ovov(s, t, c4=dCv[t]))
+
+        dT = {}
+        for s in (0, 1):
+            dVss = dV(s, s)
+            dD = deia[s][:, :, None, None] + deia[s][None, None, :, :]
+            dT[(s, s)] = ((dVss - dVss.permute(0, 3, 2, 1))
+                          - T[(s, s)] * dD) / Dpair(s, s)
+        dDos = deia[0][:, :, None, None] + deia[1][None, None, :, :]
+        dT[(0, 1)] = (dV(0, 1) - T[(0, 1)] * dDos) / Dpair(0, 1)
+
+        out = []
+        for s in (0, 1):
+            half = pcorr_blocks(s, dT[(s, s)], T[(s, s)], dT[(0, 1)],
+                                T[(0, 1)])
+            dP_rot = U[s] @ P[s] - P[s] @ U[s]
+            out.append(Cs[s] @ (dP_rot + half + half.T) @ Cs[s].T)
+        return torch.stack(out)
+
+    return torch.stack([one(u, Q) for u, Q in zip(us, vs)])
 
 
 def get_vpots_frag(nao, relAO_per_edge, AO_in_frag):

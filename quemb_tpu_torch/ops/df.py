@@ -235,9 +235,12 @@ def df_fragment_eri(B: torch.Tensor, TA: torch.Tensor) -> torch.Tensor:
 
 
 def _free_bytes(device: torch.device) -> float:
-    """Free memory of a CUDA device; unbounded elsewhere."""
+    """Free memory of a CUDA device, with what PyTorch's allocator holds
+    in its cache and can hand out again; unbounded elsewhere."""
     if device.type == "cuda":
-        return float(torch.cuda.mem_get_info(device)[0])
+        return float(torch.cuda.mem_get_info(device)[0]
+                     + torch.cuda.memory_reserved(device)
+                     - torch.cuda.memory_allocated(device))
     return float("inf")
 
 
@@ -246,14 +249,18 @@ def df_transform_batched(B: torch.Tensor, TA_b: torch.Tensor) -> torch.Tensor:
 
     The first quarter transform's output is nf * naux * nemb * nao doubles
     (3.1 GB at nf 38, naux 3460, nemb 42, nao 282).  When that and the
-    [nf, naux, nemb^2] second half exceed half the device's free memory,
-    the aux axis is cut into equal chunks that fit and the Gram products
-    accumulate; otherwise the whole batch is one pass.
+    [nf, naux, nemb^2] second half exceed what half the device's free
+    memory leaves beside the [nf, nemb^4] result and one partial sum, the
+    aux axis is cut into equal chunks that fit and the Gram products
+    accumulate; otherwise the whole batch is one pass.  The caller sizes
+    nf so that the result fits (``api._cd_fragment_eris``).
     """
     naux, nao, _ = B.shape
     nf, _, nemb = TA_b.shape
     need = 8.0 * nf * naux * nemb * (nao + 2 * nemb)
-    nchunk = int(min(naux, max(1, -(-need // (0.5 * _free_bytes(B.device))))))
+    room = max(0.5 * _free_bytes(B.device) - 2 * 8.0 * nf * nemb ** 4,
+               need / naux)
+    nchunk = int(min(naux, max(1, -(-need // room))))
     step = -(-naux // nchunk)
     eri = None
     for p0 in range(0, naux, step):

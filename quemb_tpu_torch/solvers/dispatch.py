@@ -8,12 +8,13 @@ wider than ``_NEMB_BATCHED_MAX`` on a card, solved by CCSD or MP2, goes
 fragment by fragment through :func:`_solve_bucket_large`; every other
 bucket runs :func:`_solve_bucket_batched` with the fragment axis as a
 leading batch dimension: batched fragment SCF -> MO-ERI transform -> the
-solver (closed-shell CCSD or MP2 on the device; FCI, SCI or DMRG on the
-host) -> RDMs -> embedding-basis 1-RDM -> cumulant or non-cumulant energy
-rows.  The JAX module keeps a fused and a staged form of this pass because
-one is a single XLA program; eager torch has one form.  Relaxed CCSD
-densities and the spin-orbital CCSD switch are ROADMAP A14 and raise.  The
-fragment axis is not sharded over devices.
+solver (closed-shell CCSD, or the spin-orbital kernel under
+``QUEMB_TPU_CCSD_SPINORB=1``, or MP2 on the device; relaxed CCSD densities
+fragment by fragment on the device; FCI, SCI or DMRG on the host) -> RDMs
+-> embedding-basis 1-RDM -> cumulant or non-cumulant energy rows.  The JAX
+module keeps a fused and a staged form of this pass because one is a
+single XLA program; eager torch has one form.  The fragment axis is not
+sharded over devices.
 """
 
 from __future__ import annotations
@@ -28,11 +29,13 @@ from quemb_tpu_torch.embed.fragment import Fragment
 from quemb_tpu_torch.embed.fragment_scf import rhf_orthonormal
 from quemb_tpu_torch.ops.eri_transform import \
     batched_mo_eri as _batched_mo_eri
-from quemb_tpu_torch.solvers.ccsd import _default_conv_tol, _f32_only
+from quemb_tpu_torch.solvers.ccsd import _default_conv_tol, _f32_only, \
+    ccsd_so_batched, ccsd_so_large
+from quemb_tpu_torch.solvers.ccsd_relaxed import ccsd_relaxed_rdms
 from quemb_tpu_torch.solvers.dmrg import solve_dmrg
 from quemb_tpu_torch.solvers.fci import remove_mf_part, solve_fci
-from quemb_tpu_torch.solvers.mp2 import add_mean_field_rdm2, \
-    make_rdm1_mp2, make_rdm2_mp2, mp2_amplitudes
+from quemb_tpu_torch.solvers.mp2 import _occ_projector, \
+    add_mean_field_rdm2, make_rdm1_mp2, make_rdm2_mp2, mp2_amplitudes
 from quemb_tpu_torch.solvers.rccsd import _rccsd_from_mo_batched, \
     rccsd_large
 from quemb_tpu_torch.solvers.sci import solve_sci
@@ -205,13 +208,29 @@ def _bucket_dev(frs: list[Fragment], pads: tuple[tuple[int, int], ...]):
     return out
 
 
-def _check_solver(solver: str, relax_density: bool) -> None:
+def _spinorb() -> bool:
+    """The spin-orbital CCSD kernel instead of the closed-shell one (env
+    QUEMB_TPU_CCSD_SPINORB=1)."""
+    return os.environ.get("QUEMB_TPU_CCSD_SPINORB", "") in (
+        "1", "true", "yes",
+    )
+
+
+def _remove_mf_part(dm1, dm2, nsocc: int):
+    """:func:`quemb_tpu_torch.solvers.fci.remove_mf_part` on tensors, one
+    fragment: the mean-field and semi-cumulant part out of a 2-RDM."""
+    hf_dm = 2.0 * _occ_projector(nsocc, dm1.shape[-1], dm1)
+    d = dm1 - hf_dm
+    es = torch.einsum
+    nc = es("ij,kl->ijkl", hf_dm, hf_dm + d) + es("ij,kl->ijkl", d, hf_dm)
+    nc = nc - 0.5 * (es("ij,kl->iklj", hf_dm, hf_dm + d)
+                     + es("ij,kl->iklj", d, hf_dm))
+    return dm2 - nc
+
+
+def _check_solver(solver: str) -> None:
     """Raise for what the bucket solve does not run, with the JAX
     package's words where it has them."""
-    if relax_density:
-        raise NotImplementedError(
-            "relax_density=True (solvers/ccsd_relaxed.py) is ROADMAP A14"
-        )
     if solver in ("SHCI", "HCI"):
         # Reference enum parity (molbe/solver.py:42 Solvers literal).
         raise NotImplementedError(
@@ -222,22 +241,17 @@ def _check_solver(solver: str, relax_density: bool) -> None:
         )
     if solver not in ("CCSD", "MP2", *_HOST_CI):
         raise NotImplementedError(f"Solver {solver} not implemented")
-    if solver == "CCSD" and os.environ.get(
-        "QUEMB_TPU_CCSD_SPINORB", ""
-    ) in ("1", "true", "yes"):
-        raise NotImplementedError(
-            "QUEMB_TPU_CCSD_SPINORB: the spin-orbital CCSD kernel is"
-            " ROADMAP A14; unset it for the closed-shell kernel"
-        )
 
 
-def _takes_large_path(nemb: int, device: torch.device, solver: str) -> bool:
+def _takes_large_path(nemb: int, device: torch.device, solver: str,
+                      relax_density: bool = False) -> bool:
     """The JAX package's routing: a bucket wider than
-    ``_NEMB_BATCHED_MAX`` solved by CCSD or MP2 goes fragment by fragment
-    on a card; the CPU always runs the batched path."""
+    ``_NEMB_BATCHED_MAX`` solved by CCSD (unrelaxed) or MP2 goes fragment
+    by fragment on a card; the CPU always runs the batched path."""
     return (
         nemb > _NEMB_BATCHED_MAX
         and device.type != "cpu"
+        and not relax_density
         and solver in ("CCSD", "MP2")
     )
 
@@ -246,11 +260,11 @@ def _solve_bucket(frs, solver, eeval, use_cumulant, relax_density,
                   pads=None):
     """One bucket of :func:`be_func`, through the large-fragment or the
     batched path (:func:`_takes_large_path`); returns what they return."""
-    _check_solver(solver, relax_density)
+    _check_solver(solver)
     if pads is None:
         pads = ((0, 0),) * len(frs)
     nemb = frs[0].nao + pads[0][0] + pads[0][1]
-    if _takes_large_path(nemb, frs[0].eri.device, solver):
+    if _takes_large_path(nemb, frs[0].eri.device, solver, relax_density):
         # merge classes wider than _NEMB_BATCHED_MAX hold no pads
         return _solve_bucket_large(frs, solver, eeval, use_cumulant)
     return _solve_bucket_batched(frs, solver, eeval, use_cumulant,
@@ -261,7 +275,8 @@ def _solve_bucket_large(frs, solver, eeval, use_cumulant):
     """Fragment-at-a-time pipeline for large embedding spaces.
 
     One fragment at its true shape goes end to end on its ERI's device:
-    fragment SCF -> MO transform -> CCSD (:func:`rccsd_large`) or MP2
+    fragment SCF -> MO transform -> CCSD (:func:`rccsd_large`, or
+    :func:`ccsd_so_large` under ``QUEMB_TPU_CCSD_SPINORB``) or MP2
     amplitudes -> the unrelaxed RDMs -> energy rows.  Only its results
     are kept (orbitals, amplitudes, RDMs, the embedding-basis 1-RDM on the
     host), so the next fragment's working set reuses the memory of this
@@ -269,7 +284,7 @@ def _solve_bucket_large(frs, solver, eeval, use_cumulant):
     RDMs with t1 = 0, not the MP2 RDMs of the batched path.  Returns the
     summed ``[e1, e2, ec]`` with ``eeval``, else None.
     """
-    _check_solver(solver, False)
+    _check_solver(solver)
     if solver not in ("CCSD", "MP2"):
         raise NotImplementedError(
             f"large-fragment path supports CCSD/MP2, not {solver}"
@@ -286,7 +301,8 @@ def _solve_bucket_large(frs, solver, eeval, use_cumulant):
         moe, C, _, _ = rhf_orthonormal(h, eri, nsocc, dm0)
         eri_mo = _batched_mo_eri(eri, C)
         if solver == "CCSD":
-            t1, t2, _, delta = rccsd_large(eri_mo[0], moe[0], nsocc)
+            large = ccsd_so_large if _spinorb() else rccsd_large
+            t1, t2, _, delta = large(eri_mo[0], moe[0], nsocc)
             if not _f32_only() and delta > 10 * _default_conv_tol():
                 warnings.warn(
                     f"CCSD fragment not fully converged: max|dt| = "
@@ -337,7 +353,9 @@ def _solve_bucket_batched(frs, solver, eeval, use_cumulant, relax_density,
     occupied/virtual embedding dimensions up to a shared (nsocc, nemb)
     target so near-same-shaped buckets run as ONE batch -- exactly (see
     _PAD_SHIFT); per-fragment results are sliced back to true shapes
-    before they are stored.  Solvers: ``"CCSD"`` and ``"MP2"`` on the
+    before they are stored.  Solvers: ``"CCSD"`` (closed-shell, or
+    spin-orbital under ``QUEMB_TPU_CCSD_SPINORB``; with ``relax_density``
+    the relaxed densities one fragment at a time) and ``"MP2"`` on the
     device; ``"FCI"``, ``"SCI"`` and ``"DMRG"`` with the SCF and the MO
     transform on the device and the CI on the host; cumulant or
     non-cumulant energies.  Any width runs here (the routing of wide
@@ -345,10 +363,11 @@ def _solve_bucket_batched(frs, solver, eeval, use_cumulant, relax_density,
     ``[e1, e2, ec]`` with ``eeval``, else None; per-fragment results are
     written back onto the fragments.
     """
-    _check_solver(solver, relax_density)
+    _check_solver(solver)
     if pads is None:
         pads = ((0, 0),) * len(frs)
-    if solver in _HOST_CI and any(po or pv for po, pv in pads):
+    padded = any(po or pv for po, pv in pads)
+    if padded and (relax_density or solver not in ("CCSD", "MP2")):
         raise ValueError(
             "bucket-merge padding supports batched CCSD/MP2 only"
         )
@@ -364,12 +383,34 @@ def _solve_bucket_batched(frs, solver, eeval, use_cumulant, relax_density,
     moe_b, C_b, _, _ = rhf_orthonormal(h_b, eri_b, nsocc, dev["dm0"])
 
     t1_b = t2_b = None
-    if solver == "CCSD":
+    if solver == "CCSD" and relax_density:
+        # lambda/response densities via adjoint implicit differentiation
+        # (reference solver.py:920-940 relax=True), one fragment at a time
+        h_mo_b = C_b.transpose(1, 2) @ h_b @ C_b
+        rdm1_l, rdm2_l = [], []
+        for h_mo, eri_mo in zip(h_mo_b, _batched_mo_eri(eri_b, C_b)):
+            rdm1, rdm2, _ = ccsd_relaxed_rdms(h_mo, eri_mo, nsocc)
+            if use_cumulant:
+                rdm2 = _remove_mf_part(rdm1, rdm2, nsocc)
+            rdm1_l.append(rdm1)
+            rdm2_l.append(rdm2)
+        rdm1_b, rdm2_b = torch.stack(rdm1_l), torch.stack(rdm2_l)
+    elif solver == "CCSD":
         f32_only = _f32_only()
         eri_mo_b = _batched_mo_eri(eri_b, C_b)
-        t1_b, t2_b, _, delta = _rccsd_from_mo_batched(
-            eri_mo_b, moe_b, nsocc, f32_only=f32_only
-        )
+        if _spinorb():
+            if padded:
+                raise ValueError(
+                    "bucket-merge padding is not supported with the legacy"
+                    " spin-orbital kernel (QUEMB_TPU_CCSD_SPINORB); set"
+                    " QUEMB_TPU_MERGE_BUCKETS=0"
+                )
+            amplitudes = ccsd_so_batched
+        else:
+            def amplitudes(eri_mo_b, moe_b, nsocc):
+                return _rccsd_from_mo_batched(eri_mo_b, moe_b, nsocc,
+                                              f32_only=f32_only)
+        t1_b, t2_b, _, delta = amplitudes(eri_mo_b, moe_b, nsocc)
         rdm1_b, rdm2_b = _rdm12_urlx_batched(
             t1_b, t2_b, with_dm1=not use_cumulant
         )
@@ -471,12 +512,15 @@ def form_merge_classes(
     densities) get the unmerged plan, one class per true (nao, nsocc)
     shape with no pads.  A class wider than ``_NEMB_BATCHED_MAX`` holds one
     true shape and no pads.  The JAX function's ``QUEMB_TPU_MERGE_BUCKETS``
-    switch is not carried: CCSD and MP2 always merge.
+    switch is not carried: CCSD and MP2 always merge, except under the
+    spin-orbital kernel, which refuses padding (``QUEMB_TPU_CCSD_SPINORB``;
+    the JAX package needs ``QUEMB_TPU_MERGE_BUCKETS=0`` beside it).
     """
     buckets: dict[tuple[int, int], list[Fragment]] = {}
     for fr in fragments:
         buckets.setdefault((fr.nao, fr.nsocc), []).append(fr)
-    if solver not in ("CCSD", "MP2") or relax_density:
+    if (solver not in ("CCSD", "MP2") or relax_density
+            or (solver == "CCSD" and _spinorb())):
         return [[(fr, (0, 0)) for fr in frs] for frs in buckets.values()]
 
     # greedy: largest-nao key seeds a class; a key joins if the class

@@ -18,79 +18,27 @@ mixed f32-then-f64 stage is not ported.
 
 from __future__ import annotations
 
-import os
-
 import torch
 
-from quemb_tpu_torch.solvers.ccsd import DIIS_SPACE, _default_conv_tol, \
-    _diis_coeffs, _f32_only
+from quemb_tpu_torch.solvers.ccsd import _default_conv_tol, _diis_loop, \
+    _f32_only, _f32_tol
 from quemb_tpu_torch.solvers.rccsd_mat import rccsd_fused_blocks, \
     rccsd_update_mat
 
-MAX_CYCLE = 150  # the JAX function's default ``max_cycle``
-
-
-def _max_cycle() -> int:
-    """Iteration cap (env ``QUEMB_TPU_CCSD_MAX_CYCLE``, default 150): the
-    JAX function's ``max_cycle`` argument.  Small-gap fragments (the
-    strained model chain of ``utils.geometry.alkane_atoms``) need more."""
-    return int(os.environ.get("QUEMB_TPU_CCSD_MAX_CYCLE", MAX_CYCLE))
+#: iteration cap of the closed-shell CCSD (the JAX functions' default
+#: ``max_cycle``); a caller that needs more sets it and restores it
+MAX_CYCLE = 150
 
 
 def _rdiis_stage(fb, moe_o, moe_v, t1_0, T2p_0, conv_tol):
-    """DIIS-accelerated RCCSD iteration at the input dtype.
-
-    Shift-append history of the last ``DIIS_SPACE`` amplitudes and f32
-    errors; the f32 error Gram is solved in f64, per lane.  Returns
+    """DIIS-accelerated RCCSD iteration at the input dtype, to
+    ``conv_tol`` or ``MAX_CYCLE`` steps (:func:`_diis_loop`).  Returns
     (t1 [nf, no, nv], T2p [nf, no^2, nv^2], n_it [nf], delta [nf] f64).
     """
-    dtype, dev = T2p_0.dtype, T2p_0.device
-    nf, no, nv = t1_0.shape
-    m = DIIS_SPACE
-    t1, T2p = t1_0, T2p_0
-    err1 = torch.zeros((nf, m, no, nv), dtype=torch.float32, device=dev)
-    err2 = torch.zeros((nf, m, no * no, nv * nv), dtype=torch.float32,
-                       device=dev)
-    amp1 = torch.zeros((nf, m, no, nv), dtype=dtype, device=dev)
-    amp2 = torch.zeros((nf, m, no * no, nv * nv), dtype=dtype, device=dev)
-    it = torch.zeros(nf, dtype=torch.long, device=dev)
-    delta = torch.full((nf,), float("inf"), dtype=torch.float64, device=dev)
-    max_cycle = _max_cycle()
-    while True:
-        active = (delta > conv_tol) & (it < max_cycle)
-        if not bool(active.any()):
-            break
-        t1n, T2n, _ = rccsd_update_mat(t1, T2p, moe_o, moe_v, fb)
-        e1 = t1n - t1
-        e2 = T2n - T2p
-        step = torch.sqrt(
-            (e1.double() ** 2).sum((1, 2)) + (e2.double() ** 2).sum((1, 2))
-        )
-        err1n = torch.cat([err1[:, 1:], e1.float()[:, None]], 1)
-        err2n = torch.cat([err2[:, 1:], e2.float()[:, None]], 1)
-        amp1n = torch.cat([amp1[:, 1:], t1n[:, None]], 1)
-        amp2n = torch.cat([amp2[:, 1:], T2n[:, None]], 1)
-        B = (
-            torch.einsum("fmij,fnij->fmn", err1n, err1n)
-            + torch.einsum("fmpq,fnpq->fmn", err2n, err2n)
-        ).double()
-        c = _diis_coeffs(B, torch.clamp(it + 1, max=m))
-        c = c.to(dtype)
-        use = (it > 0)[:, None, None]
-        t1x = torch.where(use, torch.einsum("fm,fmij->fij", c, amp1n), t1n)
-        T2x = torch.where(use, torch.einsum("fm,fmpq->fpq", c, amp2n), T2n)
-        # converged lanes stay frozen, as under vmap(while_loop)
-        a3 = active[:, None, None]
-        a4 = active[:, None, None, None]
-        t1 = torch.where(a3, t1x, t1)
-        T2p = torch.where(a3, T2x, T2p)
-        err1 = torch.where(a4, err1n, err1)
-        err2 = torch.where(a4, err2n, err2)
-        amp1 = torch.where(a4, amp1n, amp1)
-        amp2 = torch.where(a4, amp2n, amp2)
-        delta = torch.where(active, step, delta)
-        it = it + active.long()
-    return t1, T2p, it, delta
+    def step(t1, T2p):
+        return rccsd_update_mat(t1, T2p, moe_o, moe_v, fb)[:2]
+
+    return _diis_loop(step, t1_0, T2p_0, conv_tol, MAX_CYCLE)
 
 
 def _rccsd_iterate(moe_o, moe_v, fb: dict, conv_tol=None):
@@ -125,10 +73,9 @@ def _rccsd_from_mo_batched(eri_mo_b, moe_b, nsocc: int,
     """
     if f32_only:
         fb = rccsd_fused_blocks(eri_mo_b.float(), nsocc)
-        f32_tol = float(os.environ.get("QUEMB_TPU_CCSD_F32_TOL", "1e-5"))
         t1f, t2f, it, delta = _rccsd_iterate(
             moe_b[:, :nsocc].float(), moe_b[:, nsocc:].float(), fb,
-            conv_tol=f32_tol,
+            conv_tol=_f32_tol(),
         )
         return t1f.double(), t2f.double(), it, delta
     fb = rccsd_fused_blocks(eri_mo_b, nsocc)

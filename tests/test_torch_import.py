@@ -27,12 +27,17 @@ MODULES = (
     "quemb_tpu_torch.ops.eri_transform",
     "quemb_tpu_torch.ops.screened_df",
     "quemb_tpu_torch.ops.sparse_df",
+    "quemb_tpu_torch.solvers.ccsd",
+    "quemb_tpu_torch.solvers.ccsd_mat",
+    "quemb_tpu_torch.solvers.ccsd_relaxed",
     "quemb_tpu_torch.solvers.dispatch",
     "quemb_tpu_torch.solvers.dmrg",
     "quemb_tpu_torch.solvers.fci",
     "quemb_tpu_torch.solvers.mp2",
     "quemb_tpu_torch.solvers.rccsd",
     "quemb_tpu_torch.solvers.sci",
+    "quemb_tpu_torch.solvers.uccsd",
+    "quemb_tpu_torch.ube",
     "quemb_tpu_torch.utils.device",
     "quemb_tpu_torch.utils.geometry",
 )
@@ -60,7 +65,8 @@ def test_every_module_is_listed_and_names_no_jax():
     assert set(MODULES) <= set(walked)
     for m in ("native", "native.eri_native", "config", "utils.geometry",
               "chem.integrals", "chem.sph", "lo.iao", "lo.jacobi",
-              "solvers.sci", "solvers.dmrg"):
+              "solvers.sci", "solvers.dmrg", "solvers.ccsd_mat",
+              "solvers.ccsd_relaxed", "solvers.uccsd", "ube"):
         assert f"quemb_tpu_torch.{m}" in MODULES
     bad = re.compile(
         r"^\s*(import|from)\s+(jax|quemb_tpu)(\.|\s|$)", re.MULTILINE

@@ -283,11 +283,16 @@ def test_optimize_value_errors(jax_side, h8, n_BE, match):
 
 
 def test_optimize_rejects_unported(jax_side, h8):
-    _, be = _pair(jax_side, h8, 2)
-    with pytest.raises(NotImplementedError, match="A14"):
-        be.optimize(solver="CCSD", relax_density=True)
+    """What ``optimize`` refuses (an unknown method), and what it no
+    longer refuses: relaxed CCSD densities, here matching the chemical
+    potential alone, give the JAX package's energy at 1e-8."""
+    jbe, be = _pair(jax_side, h8, 2)
     with pytest.raises(ValueError, match="Unsupported optimization"):
         be.optimize(solver="CCSD", method="Newton")
+    kw = dict(solver="CCSD", relax_density=True, only_chem=True)
+    jbe.optimize(**kw)
+    be.optimize(**kw)
+    assert abs(be.ebe_tot - jbe.ebe_tot) < 1e-8
 
 
 # --------------------------------------------------------------- on a card

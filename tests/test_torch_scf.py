@@ -142,7 +142,11 @@ def test_device_defaults_to_cuda_and_uhf_waits():
             RHF(mol).kernel()
         with pytest.raises(RuntimeError, match="no CUDA device"):
             RHF(mol, device="cuda")
-    with pytest.raises(NotImplementedError, match="A14"):
-        UHF(mol)
+    uhf = UHF(mol)  # constructs; the device is resolved by the SCF
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            uhf.kernel()
+    uhf = UHF(mol, device="cpu")
+    assert abs(uhf.kernel() - RHF(mol, device="cpu").kernel()) < 1e-10
     with pytest.raises(ValueError, match="even electron"):
         RHF(Mole(atom="H 0 0 0", basis="sto-3g", spin=1), device="cpu").nocc

@@ -307,21 +307,37 @@ def test_merge_plan_per_solver_matches_jax():
 
 
 def test_unported_paths_raise(h8_pair, monkeypatch):
-    """What the bucket solve still refuses: relaxed densities and the
-    spin-orbital CCSD (ROADMAP A14), the external SHCI/HCI solvers (the JAX
-    package's message) and unknown solvers."""
-    _, be = h8_pair
+    """What the bucket solve still refuses: the external SHCI/HCI solvers
+    (the JAX package's message), unknown solvers, and bucket-merge pads
+    beside a host CI solver, relaxed densities or the spin-orbital kernel
+    (the JAX package's messages).  Relaxed densities and the spin-orbital
+    kernel themselves run, and give the JAX package's objective: 1e-8."""
+    jbe, be = h8_pair
     frs = be.fragments
     for solver in ("SHCI", "HCI"):
         with pytest.raises(NotImplementedError, match="cornell_shci"):
             dispatch.be_func(None, frs, be.Nocc, solver)
-    with pytest.raises(NotImplementedError, match="A14"):
-        dispatch.be_func(None, frs, be.Nocc, "CCSD", relax_density=True)
     with pytest.raises(NotImplementedError, match="not implemented"):
         dispatch.be_func(None, frs, be.Nocc, "CISD")
     with pytest.raises(ValueError, match="CCSD/MP2 only"):
         dispatch._solve_bucket_batched(frs[:1], "FCI", False, True, False,
                                        pads=((1, 0),))
-    monkeypatch.setenv("QUEMB_TPU_CCSD_SPINORB", "1")
-    with pytest.raises(NotImplementedError, match="A14"):
-        dispatch.be_func(None, frs, be.Nocc, "CCSD")
+    with pytest.raises(ValueError, match="CCSD/MP2 only"):
+        dispatch._solve_bucket_batched(frs[:1], "CCSD", False, True, True,
+                                       pads=((1, 0),))
+    pot = np.random.default_rng(2).standard_normal(len(be.pot)) * 1e-3
+    kw = dict(eeval=True, return_vec=True)
+    for relax, spinorb in ((True, False), (False, True)):
+        if spinorb:
+            monkeypatch.setenv("QUEMB_TPU_CCSD_SPINORB", "1")
+            monkeypatch.setenv("QUEMB_TPU_MERGE_BUCKETS", "0")
+        ref = jax_dispatch.be_func(pot, jbe.fragments, jbe.Nocc, "CCSD",
+                                   relax_density=relax, **kw)
+        out = dispatch.be_func(pot, frs, be.Nocc, "CCSD",
+                               relax_density=relax, **kw)
+        assert abs(out[0] - ref[0]) < 1e-8
+        assert np.abs(out[1] - ref[1]).max() < 1e-8
+        assert abs(out[2][0] - ref[2][0]) < 1e-8
+    with pytest.raises(ValueError, match="QUEMB_TPU_MERGE_BUCKETS=0"):
+        dispatch._solve_bucket_batched(frs[:1], "CCSD", False, True, False,
+                                       pads=((1, 0),))

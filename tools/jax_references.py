@@ -1,0 +1,135 @@
+"""Reference energies of ``chip_smoke.py`` phases 13 and 14, on the CPU.
+
+    JAX_PLATFORMS=cpu python3 tools/jax_references.py CASE
+        [--package jax|torch]
+
+``CASE`` is one of:
+
+- ``octane-relaxed`` (phase 13): octane (C8H18, STO-3G) BE2 from
+  ``fixtures/octane_sto3g_hf.npz``, six chemgen fragments,
+  ``BE.optimize(solver="CCSD", relax_density=True, only_chem=True)``
+  from zero potential with the HF Jacobian and CCSD tolerance 1e-6 (the
+  relaxed densities iterate their own CCSD to 1e-10).  Minutes an
+  evaluation on four cores;
+- ``hexene-anion-ube`` (phase 14): the hexene anion (STO-3G, charge -1,
+  spin 1), ``UHF(conv_tol=1e-10)``, then with a frozen core one-shot
+  ``UBE`` BE1 and BE2 with UCCSD, as ``tests/test_ube_hexene.py`` runs
+  them.  A few minutes.
+
+Each runs through the JAX package (default; plain f64 CCSD) or through the
+port (``device="cpu"``) and prints one JSON line per energy, with the
+wall (``octane-relaxed`` also one line per objective evaluation, with its
+error norm).
+"""
+
+import argparse
+import json
+import os
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+FIXTURE = os.path.join(ROOT, "fixtures", "octane_sto3g_hf.npz")
+OCTANE_XYZ = os.path.join(ROOT, "tests", "data", "xyz", "octane.xyz")
+HEXENE_XYZ = os.path.join(ROOT, "tests", "data", "xyz", "hexene.xyz")
+
+
+def _octane_be(package):
+    if package == "torch":
+        import quemb_tpu_torch as qt
+        from quemb_tpu_torch.chem.scf import load_fixture
+
+        mf = load_fixture(FIXTURE, OCTANE_XYZ, device="cpu")
+        return qt.BE(mf, qt.fragmentate(mf.mol, n_BE=2, frag_type="chemgen",
+                                        print_frags=False), device="cpu")
+    import numpy as np
+
+    from quemb_tpu import BE, fragmentate
+    from quemb_tpu.chem.mole import Mole
+    from quemb_tpu.chem.scf import RHF
+    from quemb_tpu.utils.eri_pack import unpack_eri_s8
+
+    mol = Mole.from_xyz_file(OCTANE_XYZ, basis="sto-3g")
+    mf = RHF(mol, conv_tol=1e-12)
+    d = np.load(FIXTURE)
+    mf._hcore, mf._S = d["hcore"], d["S"]
+    mf._eri = unpack_eri_s8(d["eri_s8"], int(d["nao"]))
+    mf.mo_coeff, mf.mo_energy = d["C"], d["moe"]
+    mf.e_tot = float(d["e_tot"])
+    mf.converged = True
+    return BE(mf, fragmentate(mol=mol, n_BE=2, frag_type="chemgen",
+                              print_frags=False))
+
+
+def octane_relaxed(package):
+    os.environ["QUEMB_TPU_CCSD_CONV_TOL"] = "1e-6"
+    be = _octane_be(package)
+    if package == "torch":
+        from quemb_tpu_torch.matching import beopt
+    else:
+        from quemb_tpu.matching import beopt
+    be_func, errs = beopt.be_func, []
+
+    def logged(*args, **kwargs):
+        ret = be_func(*args, **kwargs)
+        errs.append(float(ret[0]))
+        print(json.dumps({"evaluation": len(errs), "error_norm": errs[-1],
+                          "s": time.perf_counter() - t0}), flush=True)
+        return ret
+
+    beopt.be_func = logged
+    t0 = time.perf_counter()
+    be.optimize(solver="CCSD", relax_density=True, only_chem=True)
+    yield {"ebe_tot": be.ebe_tot, "ebe_hf": be.ebe_hf,
+           "evaluations": len(errs), "s": time.perf_counter() - t0}
+
+
+def hexene_anion_ube(package):
+    if package == "torch":
+        from quemb_tpu_torch import fragmentate
+        from quemb_tpu_torch.chem.mole import Mole
+        from quemb_tpu_torch.chem.scf import UHF
+        from quemb_tpu_torch.ube import UBE
+
+        kw = dict(device="cpu")
+    else:
+        from quemb_tpu import fragmentate
+        from quemb_tpu.chem.mole import Mole
+        from quemb_tpu.chem.scf import UHF
+        from quemb_tpu.ube import UBE
+
+        kw = {}
+    mol = Mole.from_xyz_file(HEXENE_XYZ, basis="sto-3g", charge=-1, spin=1)
+    mf = UHF(mol, conv_tol=1e-10, **kw)
+    mf.kernel()
+    yield {"e_hf": mf.e_tot}
+    for n_BE in (1, 2):
+        fobj = fragmentate(mol=mol, n_BE=n_BE, frag_type="chemgen",
+                           frozen_core=True, print_frags=False)
+        t0 = time.perf_counter()
+        ube = UBE(mf, fobj, **kw)
+        ube.oneshot(solver="UCCSD")
+        yield {"n_BE": n_BE, "ebe_tot_minus_ebe_hf": ube.ebe_tot - ube.ebe_hf,
+               "hf_in_hf": ube.hf_etot - ube.ebe_hf,
+               "s": time.perf_counter() - t0}
+
+
+CASES = {"octane-relaxed": octane_relaxed,
+         "hexene-anion-ube": hexene_anion_ube}
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("case", choices=tuple(CASES))
+    ap.add_argument("--package", choices=("jax", "torch"), default="jax")
+    args = ap.parse_args()
+    if args.package == "jax":
+        os.environ["QUEMB_TPU_CCSD_MIXED"] = "0"
+    for line in CASES[args.case](args.package):
+        print(json.dumps({"case": args.case, "package": args.package,
+                          **line}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

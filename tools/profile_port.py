@@ -5,9 +5,9 @@ NVIDIA card.
         [--chain-runs N] [--identify-aux] [--chain-optimize]
         [--dump-dir DIR]
 
-Four octane parts (run unless ``--parts`` names others) and the part
-``chain`` (run only when named), printed as JSON lines (plus the profiler
-tables):
+Four octane parts (run unless ``--parts`` names others) and the parts
+``relaxed``, ``relaxed_matching``, ``memory`` and ``chain`` (run only when
+named), printed as JSON lines (plus the profiler tables):
 
 - ``kernel``: the screened first transform, one line a case: octane
   fragment 0 (the octane Cholesky factor, naux 777, nao 58) and the
@@ -48,6 +48,20 @@ tables):
   energies and their distance from the reference's.  Three such runs: at
   CCSD tolerance 1e-6, at 1e-8, and on the f32 tier (sparse-DF with the
   screened-DF kernel, f32 amplitudes) with at most 10 quasi-Newton steps;
+- ``relaxed``: the relaxed CCSD densities of octane fragment 0 at zero
+  potential, the second of two runs, split into the forward CCSD, the
+  energy gradients, the adjoint (Lambda) iterations and the x-vjp, each
+  timed between two synchronisations, in ms and iterations;
+- ``relaxed_matching``: ``be.optimize(solver="CCSD", relax_density=True)``
+  at octane from zero potential, every potential matched (CCSD tolerance
+  1e-6): the ``matching`` part's line for it, with every evaluation's wall
+  and error norm.  Some 300 evaluations, about 18 minutes;
+- ``memory``: ROADMAP C1.  Hexene/cc-pVDZ BE1 built as a user builds it
+  (RHF, BE construction, its ERI transform and fragment initialization),
+  with the peak device memory of each stage; then the bucket shape at
+  risk, 8 fragments of nemb 144 on hexene's Cholesky factor, through the
+  same transform and fragment initialization, chunked by free memory and
+  in one pass;
 - ``chain``: the density-fitted C40H82 path of ``chip_smoke.py`` phases
   7-8 (nao 282, ``etb:6.0``, naux 3460, 38 BE2 fragments).  The factor and
   the DF-RHF once (the phase-7 line); then ``--chain-runs`` (default 3)
@@ -551,10 +565,11 @@ def _timed_optimize(qt, be, what, card, **optimize_kw):
     evals = []
     with _Stopwatch(D, "rhf_orthonormal") as scf, \
             _Stopwatch(D, "_rccsd_from_mo_batched") as cc, \
+            _Stopwatch(D, "ccsd_relaxed_rdms") as rx, \
             _Stopwatch(qt.api, "get_be_error_jacobian") as jac_run:
 
         def timed_be_func(*args, **kwargs):
-            scf0, cc0 = scf.seconds, cc.seconds
+            scf0, cc0, rx0 = scf.seconds, cc.seconds, rx.seconds
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             ret = D.be_func(*args, **kwargs)
@@ -562,6 +577,7 @@ def _timed_optimize(qt, be, what, card, **optimize_kw):
             evals.append(dict(wall_s=time.perf_counter() - t0,
                               fragment_scf_s=scf.seconds - scf0,
                               rccsd_s=cc.seconds - cc0,
+                              relaxed_rdms_s=rx.seconds - rx0,
                               error_norm=float(ret[0])))
             return ret
 
@@ -574,8 +590,9 @@ def _timed_optimize(qt, be, what, card, **optimize_kw):
             wall = time.perf_counter() - t0
         finally:
             beopt.be_func = D.be_func
-    eval_s, scf_s, cc_s = (sum(e[k] for e in evals)
-                           for k in ("wall_s", "fragment_scf_s", "rccsd_s"))
+    eval_s, scf_s, cc_s, rx_s = (
+        sum(e[k] for e in evals)
+        for k in ("wall_s", "fragment_scf_s", "rccsd_s", "relaxed_rdms_s"))
     print(json.dumps({
         "part": "matching", "what": what, "card": card,
         "ccsd_conv_tol": os.environ.get("QUEMB_TPU_CCSD_CONV_TOL"),
@@ -585,6 +602,7 @@ def _timed_optimize(qt, be, what, card, **optimize_kw):
         "fragment_scf_s": scf_s,
         "fragment_scf_share_of_evaluations": scf_s / eval_s,
         "rccsd_s": cc_s, "rccsd_share_of_evaluations": cc_s / eval_s,
+        "relaxed_rdms_s": rx_s,
         "per_evaluation": evals,
         "etot": be.ebe_tot, "ecorr": be.ebe_tot - be.ebe_hf,
         "etot_dev": be.ebe_tot - ETOT_MATCHED_REF,
@@ -725,23 +743,28 @@ def profile_chain(card, runs, identify_aux, chain_optimize, dump_dir):
         }), flush=True)
 
     if chain_optimize:
+        from quemb_tpu_torch.solvers import rccsd
+
         os.environ["QUEMB_TPU_CCSD_CONV_TOL"] = C40_CCSD_CONV_TOL
-        os.environ["QUEMB_TPU_CCSD_MAX_CYCLE"] = C40_CCSD_MAX_CYCLE
-        be, init_s = wall(lambda: qt.BE(
-            mf, fobj, int_transform="sparse-DF", auxbasis=C40_AUX,
-            device=cuda))
-        _, oneshot_s = wall(lambda: be.oneshot("CCSD"))
-        ecorr0 = be.ebe_tot - be.ebe_hf
-        J, jac_s = wall(lambda: be.get_be_error_jacobian("HF"))
-        print(json.dumps({
-            "part": "chain", "what": "before_optimize", "card": card,
-            "n_frag": fobj.n_frag, "potentials": len(be.pot),
-            "init_s": init_s, "oneshot_s": oneshot_s,
-            "oneshot_ecorr": ecorr0, "jacobian_s": jac_s,
-            "jacobian_shape": list(J.shape),
-            "jacobian_finite": bool(np.all(np.isfinite(J))),
-        }), flush=True)
-        _chain_optimize(be, card, dump_dir)
+        cap_before, rccsd.MAX_CYCLE = rccsd.MAX_CYCLE, C40_CCSD_MAX_CYCLE
+        try:
+            be, init_s = wall(lambda: qt.BE(
+                mf, fobj, int_transform="sparse-DF", auxbasis=C40_AUX,
+                device=cuda))
+            _, oneshot_s = wall(lambda: be.oneshot("CCSD"))
+            ecorr0 = be.ebe_tot - be.ebe_hf
+            J, jac_s = wall(lambda: be.get_be_error_jacobian("HF"))
+            print(json.dumps({
+                "part": "chain", "what": "before_optimize", "card": card,
+                "n_frag": fobj.n_frag, "potentials": len(be.pot),
+                "init_s": init_s, "oneshot_s": oneshot_s,
+                "oneshot_ecorr": ecorr0, "jacobian_s": jac_s,
+                "jacobian_shape": list(J.shape),
+                "jacobian_finite": bool(np.all(np.isfinite(J))),
+            }), flush=True)
+            _chain_optimize(be, card, dump_dir)
+        finally:
+            rccsd.MAX_CYCLE = cap_before
         del be, J
         torch.cuda.empty_cache()
 
@@ -833,8 +856,201 @@ def _chain_optimize(be, card, dump_dir):
         beopt.be_func = D.be_func
 
 
+def _timed(name, fn, spans):
+    """``fn`` timed between two ``torch.cuda.synchronize()``; each call
+    appends (name, seconds, result) to ``spans``."""
+    def run(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        spans.append((name, time.perf_counter() - t0, out))
+        return out
+    return run
+
+
+def profile_relaxed(mf, fobj, card):
+    """Relaxed CCSD densities of octane fragment 0 at zero potential, split
+    into the forward CCSD, the adjoint (Lambda) iterations, the energy
+    gradients and the x-vjp; the second of two runs is reported."""
+    import quemb_tpu_torch as qt
+    from quemb_tpu_torch.solvers import ccsd_relaxed as cr
+    from quemb_tpu_torch.solvers import dispatch as D
+
+    cuda = torch.device("cuda")
+    be = qt.BE(mf, fobj, device=cuda)
+    fr = be.fragments[0]
+    moe, C = D.run_fragment_scf(fr)
+    h = torch.as_tensor(fr.fock + fr.heff, device=cuda)
+    h_mo = C.T @ h @ C
+    eri_mo = D._batched_mo_eri(fr.eri[None], C[None])[0]
+    inner = {k: getattr(cr, k) for k in ("_diis_stage", "vjp", "grad")}
+
+    def run():
+        spans = []
+        n_vjp, n_grad = [], []
+
+        def vjp(f, *primals):
+            n_vjp.append(1)
+            name = "adjoint" if len(n_vjp) == 1 else "x_vjp"
+            out, pull = _timed(f"{name}_linearize", inner["vjp"],
+                               spans)(f, *primals)
+            return out, _timed(f"{name}_pullback", pull, spans)
+
+        def grad(f):
+            n_grad.append(1)
+            return _timed("energy_grad_" + ("t" if len(n_grad) == 1
+                                            else "x"),
+                          inner["grad"](f), spans)
+
+        cr._diis_stage = _timed("forward_ccsd", inner["_diis_stage"], spans)
+        cr.vjp, cr.grad = vjp, grad
+        try:
+            (_, _, e), total = wall(
+                lambda: cr.ccsd_relaxed_rdms(h_mo, eri_mo, fr.nsocc))
+        finally:
+            for k, f in inner.items():
+                setattr(cr, k, f)
+        return spans, total, e
+
+    run()  # first-use costs
+    spans, total, e = run()
+    ms = {}
+    for name, sec, _ in spans:
+        ms[name] = ms.get(name, 0.0) + 1e3 * sec
+    fwd = [out for name, _, out in spans if name == "forward_ccsd"][0]
+    print(json.dumps({
+        "part": "relaxed", "card": card, "nemb": fr.nao, "nsocc": fr.nsocc,
+        "spin_orbital_no_nv": [2 * fr.nsocc, 2 * (fr.nao - fr.nsocc)],
+        "e_elec": e, "total_ms": 1e3 * total,
+        "forward_ccsd_iterations": int(fwd[2][0]),
+        "adjoint_iterations": sum(n == "adjoint_pullback"
+                                  for n, _, _ in spans),
+        **{f"{k}_ms": v for k, v in ms.items()},
+        "rest_ms": 1e3 * total - sum(ms.values()),
+    }), flush=True)
+
+
+#: the shape of ROADMAP C1: eight fragments of nemb 144 in one bucket, the
+#: hexene/cc-pVDZ BE1 shape of the JAX package's comments
+C1_SHAPE = (8, 144)
+C1_NSOCC = 24  # hexene's 48 electrons in pairs
+
+
+def _memory_stage(stages, name, fn):
+    """``fn()`` with the card's peak memory over it and what it leaves
+    held; an out-of-memory error is recorded, not raised."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+        error = None
+    except torch.cuda.OutOfMemoryError as exc:
+        out, error = None, str(exc).splitlines()[0]
+    stages[name] = dict(
+        s=time.perf_counter() - t0,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        held_gb=torch.cuda.memory_allocated() / 1e9, error=error)
+    return out
+
+
+def profile_memory(card):
+    """ROADMAP C1 on the card: hexene/cc-pVDZ BE1 built as a user builds
+    it, with the peak device memory of each stage, then the bucket shape
+    at risk (C1_SHAPE, synthetic bases of the same molecule) through the
+    same transform and fragment initialization, in runs sized by free
+    memory and, for comparison, in one pass (free memory reported as
+    unbounded, which is how they ran before they were chunked)."""
+    from types import SimpleNamespace
+
+    import quemb_tpu_torch as qt
+    from chip_smoke import HEXENE_XYZ
+    from quemb_tpu_torch import api
+    from quemb_tpu_torch.chem.mole import Mole
+    from quemb_tpu_torch.chem.scf import RHF
+    from quemb_tpu_torch.lo.lowdin import lowdin_orth
+    from quemb_tpu_torch.ops import df
+
+    cuda = torch.device("cuda")
+    total_gb = torch.cuda.get_device_properties(cuda).total_memory / 1e9
+    mol = Mole.from_xyz_file(HEXENE_XYZ, basis="cc-pvdz")
+    stages = {}
+    mf = RHF(mol, conv_tol=1e-10, device=cuda)
+    _memory_stage(stages, "rhf", mf.kernel)
+    fobj = qt.fragmentate(mol, n_BE=1, frag_type="chemgen",
+                          print_frags=False)
+    init_inner = api.BE._init_fragments_batched
+
+    def init_stage(self):
+        # everything before it (localization, Schmidt, the ERI transform)
+        # is the stage "transform"
+        torch.cuda.synchronize()
+        stages["transform"] = dict(
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            held_gb=torch.cuda.memory_allocated() / 1e9)
+        return _memory_stage(stages, "fragment_init",
+                             lambda: init_inner(self))
+
+    api.BE._init_fragments_batched = init_stage
+    try:
+        be = _memory_stage(stages, "be_init",
+                           lambda: qt.BE(mf, fobj, device=cuda))
+    finally:
+        api.BE._init_fragments_batched = init_inner
+    print(json.dumps({
+        "part": "memory", "what": "hexene_ccpvdz_be1", "card": card,
+        "card_gb": total_gb, "nao": mol.nao, "n_frag": fobj.n_frag,
+        "nemb": [fr.nao for fr in be.fragments],
+        "hf_in_hf": mf.e_tot - be.ebe_hf, "e_hf": mf.e_tot, **stages,
+    }), flush=True)
+
+    # the shape at risk, in the molecule's orthonormal AO basis
+    B = torch.as_tensor(df.cholesky_df_factor(mol, tol=1.0e-10,
+                                              eri=mf.get_eri()), device=cuda)
+    hcore = mf.get_hcore()
+    W = lowdin_orth(torch.as_tensor(mf.get_ovlp(), device=cuda)).cpu().numpy()
+    del be, mf
+    torch.cuda.empty_cache()
+    nf, nemb = C1_SHAPE
+    rng = np.random.default_rng(0)
+    TAs = [W @ np.linalg.qr(rng.standard_normal((mol.nao, nemb)))[0]
+           for _ in range(nf)]
+    free_bytes_inner = df._free_bytes
+    for label, free in (("chunked", free_bytes_inner),
+                        ("one_pass", lambda device: float("inf"))):
+        api._free_bytes = df._free_bytes = free
+        stages = {}
+        try:
+            eris = _memory_stage(stages, "transform",
+                                 lambda: api._cd_fragment_eris(B, TAs))
+            frs = []
+            for TA, eri in zip(TAs, eris or ()):
+                h1 = TA.T @ hcore @ TA
+                C0 = np.linalg.eigh(h1)[1][:, :C1_NSOCC]
+                dm0 = 2.0 * C0 @ C0.T
+                frs.append(SimpleNamespace(
+                    nao=nemb, nsocc=C1_NSOCC, eri=eri, h1=h1, _P_emb=dm0,
+                    veff0=np.zeros_like(h1), dm0=dm0,
+                    weight_and_relAO_per_center=(1.0, range(nemb))))
+            del eris
+            if frs:
+                _memory_stage(stages, "fragment_init",
+                              lambda: api._init_fragment_buckets(frs, cuda))
+        finally:
+            api._free_bytes = df._free_bytes = free_bytes_inner
+        print(json.dumps({
+            "part": "memory", "what": f"c1_shape_{label}", "card": card,
+            "card_gb": total_gb, "shape": [nf, nemb], "naux": B.shape[0],
+            "fragment_eris_gb": 8.0 * nf * nemb ** 4 / 1e9, **stages,
+        }), flush=True)
+        del frs
+        torch.cuda.empty_cache()
+
+
 OCTANE_PARTS = ("kernel", "kernel_parts", "objective", "matching")
-PARTS = (*OCTANE_PARTS, "chain")
+PARTS = (*OCTANE_PARTS, "relaxed", "relaxed_matching", "chain", "memory")
 
 
 def main():
@@ -876,6 +1092,14 @@ def main():
         profile_objective(mf, fobj, card, args.trace)
     if "matching" in parts:
         profile_matching(mf, fobj, card)
+    if "relaxed" in parts:
+        profile_relaxed(mf, fobj, card)
+    if "relaxed_matching" in parts:
+        os.environ["QUEMB_TPU_CCSD_CONV_TOL"] = "1e-6"
+        _timed_optimize(qt, qt.BE(mf, fobj, device=torch.device("cuda")),
+                        "optimize_relaxed", card, relax_density=True)
+    if "memory" in parts:
+        profile_memory(card)
     if "chain" in parts:
         profile_chain(card, args.chain_runs, args.identify_aux,
                       args.chain_optimize, args.dump_dir)

@@ -7,7 +7,9 @@ STO-3G) BE2-CCSD from the committed RHF fixture, through the
 density-fitted long chain C40H82 (STO-3G, nao 282, ``etb:6.0``, naux 3460,
 38 BE2 fragments) from integrals and a factor the port builds itself, and
 through the rest of the restricted driver (frozen core, IAO+PAO, the
-large-fragment path, full-basis RDMs, restart, SCI), in phases; each
+large-fragment path, full-basis RDMs, restart, SCI), relaxed densities and
+UBE, and through the rest of the molecular surface (``be2puffin`` with
+QM/MM, autogen and graphgen, ECPs, the scanner, FCIDUMP), in phases; each
 prints one line, and any failure raises (non-zero exit, no ``ok`` line):
 
 0. the device: CUDA name, and ``nvidia-smi`` name and power limit;
@@ -84,7 +86,31 @@ prints one line, and any failure raises (non-zero exit, no ``ok`` line):
     within 1e-6 Ha of the JAX package's (``HEXENE_ANION_UBE_REF``), with
     the distance from the values recorded in ``tests/test_ube_hexene.py``,
     the walls of the SCF, the constructions and the UCCSD solves, and the
-    UCCSD iterations.
+    UCCSD iterations;
+15. ``be2puffin`` on octane (STO-3G, BE2, no frozen core) among the four
+    MM point charges of ``tests/test_aux_surface.py:328-331``, through the
+    port's own QM/MM RHF on the card: HF-in-HF < 1e-6 Ha and E_corr within
+    1e-7 Ha of the JAX package's CPU value (``OCTANE_QMMM_ECORR_REF``),
+    with the distance to the reference's -0.54879605 from its own chkfile;
+    then ``be2puffin(..., unrestricted=True)`` on the hexene anion (BE1,
+    frozen core, its own UHF at ``conv_tol`` 1e-12): E_corr within 1e-6 Ha
+    of phase 14's BE1;
+16. octane BE2 from ``frag_type="autogen"`` matched by ``optimize`` (CCSD
+    tolerance 1e-6): E_tot within 1e-6 Ha of -310.3347211309688; then a
+    one-shot from ``"graphgen"``: E_corr within 1e-6 Ha of the JAX
+    package's (``OCTANE_GRAPHGEN_ECORR_REF``), with its distance from
+    chemgen's;
+17. propane with the synthetic carbon ECP of ``tests/test_ecp.py``: the
+    host ECP quadrature's wall, the RHF on the card and one-shot BE1 and
+    BE2 CCSD: HF-in-HF < 1e-6 Ha, E_HF and E_corr within 1e-8 Ha of the
+    JAX package's;
+18. the H6 BE3-CCSD scanner point within 1e-8 Ha of -3.23567708251885;
+    ``FragmentProbe`` against the full scanner, the central-difference
+    gradient along the z of octane's first carbon (step 1e-3) within 1e-6;
+    ``be2fcidump`` of phase 6's BE in both bases, each file read back
+    (``embedding``: within the format's precision of the fragment's Fock
+    and ERI; both: the same fragment HF energy within 1e-10 Ha); and the
+    timer table of ``BE.initialize``, ``oneshot`` and ``optimize``.
 
 No phase from 10 on reaches the kernel (their launch counts are printed
 and are 0).  The last lines are the kernel report (JSON), the card's name and power
@@ -190,6 +216,49 @@ C40_F32_ECORR_TOL = 1e-4
 C40_CCSD_CONV_TOL = "1e-8"
 C40_CCSD_MAX_CYCLE = 1000
 CHAIN_TIMINGS = 5  # timings of each version per fragment; the median
+#: phase 15: the MM point charges and their coordinates (Bohr) of
+#: tests/test_aux_surface.py:328-331; one-shot BE2-CCSD E_corr of octane
+#: among them through be2puffin (tolerance 1e-9), the JAX package's on the
+#: CPU from its own QM/MM RHF (``tools/jax_references.py octane-qmmm``; the
+#: port's CPU run gives -0.5487961372728591), the bar at 1e-7; and the
+#: reference's value from its own chkfile (BASELINE.md:22), printed
+QMMM_CHARGES = [-0.2, -0.1, 0.15, 0.2]
+QMMM_COORDS = [(-3, -8, -2), (-2, 6, 1), (2, -5, 2), (1, 8, 1.5)]
+OCTANE_QMMM_ECORR_REF = -0.5487961373118537
+OCTANE_QMMM_ECORR_CHK = -0.54879605
+#: phase 16 (``tools/jax_references.py octane-autogen``, CCSD tolerance
+#: 1e-6): the JAX package's matched autogen E_tot on the CPU, printed beside
+#: the bar ETOT_MATCHED_REF; and its one-shot graphgen E_corr, the bar.
+#: graphgen cuts octane into 8 fragments, chemgen and autogen into 6, so
+#: graphgen's E_corr lies 3.6e-4 Ha from chemgen's in both packages; that
+#: distance is printed
+OCTANE_AUTOGEN_ETOT_JAX = -310.3347214424454
+OCTANE_GRAPHGEN_ECORR_REF = -0.5503054291415879
+#: phase 17: propane and the synthetic carbon ECP of tests/test_ecp.py, and
+#: the JAX package's RHF (conv_tol 1e-12) and one-shot CCSD E_corr by n_BE
+#: (tolerance 1e-9) on the CPU (``tools/jax_references.py propane-ecp``)
+PROPANE = (
+    "C 0 0 0; C 1.26 0.86 0; C 2.52 0 0;"
+    "H -0.55 0.94 0; H -0.55 -0.55 0.8; H -0.55 -0.55 -0.8;"
+    "H 1.26 1.5 0.88; H 1.26 1.5 -0.88;"
+    "H 3.07 0.94 0; H 3.07 -0.55 0.8; H 3.07 -0.55 -0.8"
+)
+PSEUDO_C = {"C": {"ncore": 2, "local": [(2, 4.5, 8.0), (1, 2.8, 2.0)],
+                  "semilocal": {0: [(2, 6.0, 10.0)]}}}
+PROPANE_ECP_EHF_REF = -17.237324703430346
+PROPANE_ECP_ECORR_REF = {1: -0.1482502562751833, 2: -0.15017364676154443}
+#: phase 18: the H6 BE3-CCSD scanner point (BASELINE.md:28), and the
+#: fragment probe's FD gradient against the full scanner's along the z of
+#: octane's first carbon (tests/test_aux_surface.py:287-313's bar, 1e-6)
+H6_SCANNER_REF = -3.23567708251885
+PROBE_ATOM = 0
+PROBE_STEP = 1e-3
+#: write_fcidump leaves out every integral of magnitude up to 1e-12 and
+#: writes the rest with 17 significant digits, each unique one once for
+#: its eight permutations: a file read back is within 1e-12, plus the
+#: ERI's own asymmetry (bounded by 1e-14 of its largest element), of the
+#: fragment's arrays
+FCIDUMP_DROP = 1e-12
 CHAIN_CALLS = 4  # back-to-back calls between two CUDA events
 
 
@@ -902,6 +971,244 @@ def hexene_anion_ube(qt, sd, card):
             raise AssertionError(f"{key} HF-in-HF {r['hf_in_hf']:.3e} Ha")
         if not abs(r["ecorr_dev"]) < 1e-6:
             raise AssertionError(f"{key} E_corr {r['ecorr']:.10f}")
+    return launches, out["be1"]["ecorr"]
+
+
+class _captured_be:
+    """Every ``BE`` that the port's drivers construct inside a ``with``
+    block (``be2puffin`` and the scanner look ``quemb_tpu_torch.BE`` up
+    when they are called), in the list the block gets."""
+
+    def __init__(self, qt):
+        self.qt = qt
+
+    def __enter__(self):
+        made, self.inner = [], self.qt.BE
+
+        class Captured(self.inner):
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                made.append(self)
+
+        self.qt.BE = Captured
+        return made
+
+    def __exit__(self, *exc):
+        self.qt.BE = self.inner
+
+
+def qmmm_be2puffin(qt, sd, ube_be1_ecorr, card):
+    """Phase 15: one-shot BE2-CCSD of octane in four MM point charges
+    through ``be2puffin`` (the port's own QM/MM RHF on the card), then the
+    hexene anion's UBE1 through ``be2puffin(unrestricted=True)``."""
+    from quemb_tpu_torch.misc import be2puffin
+
+    cuda = torch.device("cuda")
+    t_phase = time.perf_counter()
+    sd.LAUNCHES = 0
+    with _env(QUEMB_TPU_CCSD_CONV_TOL="1e-9"), _captured_be(qt) as made:
+        ecorr, qmmm_s = wall(lambda: be2puffin(
+            XYZ, "sto-3g", n_BE=2, frozen_core=False,
+            pts_and_charges=(np.array(QMMM_COORDS, float),
+                             np.array(QMMM_CHARGES)), device=cuda))
+        be = made[-1]
+        ube_ecorr, ube_s = wall(lambda: be2puffin(
+            HEXENE_XYZ, "sto-3g", charge=-1, spin=1, unrestricted=True,
+            n_BE=1, device=cuda))
+    hf_in_hf = be.hf_etot - be.ebe_hf
+    launches = sd.LAUNCHES
+    phase(15, phase_s=time.perf_counter() - t_phase,
+          e_hf=be.hf_etot, scf_cycles=be.mf.cycles, hf_in_hf=hf_in_hf,
+          ecorr=ecorr, ecorr_dev=ecorr - OCTANE_QMMM_ECORR_REF,
+          ecorr_reference_chk_dev=ecorr - OCTANE_QMMM_ECORR_CHK,
+          be2puffin_s=qmmm_s, ube_ecorr=ube_ecorr,
+          ube_ecorr_minus_phase14=ube_ecorr - ube_be1_ecorr,
+          ube_be2puffin_s=ube_s, kernel_launches=launches, card=card)
+    if not abs(hf_in_hf) < 1e-6:
+        raise AssertionError(f"QM/MM HF-in-HF {hf_in_hf:.3e} Ha")
+    if not abs(ecorr - OCTANE_QMMM_ECORR_REF) < 1e-7:
+        raise AssertionError(f"QM/MM E_corr {ecorr:.10f}")
+    if not abs(ube_ecorr - ube_be1_ecorr) < 1e-6:
+        raise AssertionError(f"be2puffin UBE1 E_corr {ube_ecorr:.10f}")
+    return launches
+
+
+def fragmenters(qt, sd, mf, card):
+    """Phase 16: octane BE2 from autogen, matched (CCSD tolerance 1e-6, as
+    phase 6), and one-shot from graphgen."""
+    cuda = torch.device("cuda")
+    t_phase = time.perf_counter()
+    sd.LAUNCHES = 0
+    mol = mf.mol
+    with _env(QUEMB_TPU_CCSD_CONV_TOL="1e-6"):
+        fobj_a = qt.fragmentate(mol, n_BE=2, frag_type="autogen",
+                                print_frags=False)
+        be, init_s = wall(lambda: qt.BE(mf, fobj_a, device=cuda))
+        _, opt_s = wall(lambda: be.optimize(solver="CCSD"))
+        etot, hf_a = be.ebe_tot, be.hf_etot - be.ebe_hf
+        fobj_g = qt.fragmentate(mol, n_BE=2, frag_type="graphgen",
+                                print_frags=False)
+        be, ginit_s = wall(lambda: qt.BE(mf, fobj_g, device=cuda))
+        _, gshot_s = wall(lambda: be.oneshot("CCSD"))
+        ecorr_g, hf_g = be.ebe_tot - be.ebe_hf, be.hf_etot - be.ebe_hf
+    launches = sd.LAUNCHES
+    phase(16, phase_s=time.perf_counter() - t_phase,
+          autogen_n_frag=fobj_a.n_frag, autogen_hf_in_hf=hf_a,
+          autogen_init_s=init_s, autogen_optimize_s=opt_s,
+          autogen_etot=etot, autogen_etot_dev=etot - ETOT_MATCHED_REF,
+          autogen_etot_jax_dev=etot - OCTANE_AUTOGEN_ETOT_JAX,
+          graphgen_n_frag=fobj_g.n_frag, graphgen_hf_in_hf=hf_g,
+          graphgen_init_s=ginit_s, graphgen_oneshot_s=gshot_s,
+          graphgen_ecorr=ecorr_g,
+          graphgen_ecorr_dev=ecorr_g - OCTANE_GRAPHGEN_ECORR_REF,
+          graphgen_minus_chemgen_ecorr=ecorr_g - ECORR_REF,
+          kernel_launches=launches, card=card)
+    for name, hf in (("autogen", hf_a), ("graphgen", hf_g)):
+        if not abs(hf) < 1e-6:
+            raise AssertionError(f"{name} HF-in-HF {hf:.3e} Ha")
+    if not abs(etot - ETOT_MATCHED_REF) < MATCHED_TOL:
+        raise AssertionError(f"autogen matched E_tot {etot:.10f}")
+    if not abs(ecorr_g - OCTANE_GRAPHGEN_ECORR_REF) < MATCHED_TOL:
+        raise AssertionError(f"graphgen one-shot E_corr {ecorr_g:.10f}")
+    return launches
+
+
+def propane_ecp(qt, sd, card):
+    """Phase 17: propane with the synthetic carbon ECP of tests/test_ecp.py:
+    the host ECP quadrature, the RHF on the card, one-shot BE1 and BE2
+    CCSD."""
+    from quemb_tpu_torch.chem.ecp import ecp_matrix
+    from quemb_tpu_torch.chem.mole import Mole
+    from quemb_tpu_torch.chem.scf import RHF
+
+    cuda = torch.device("cuda")
+    t_phase = time.perf_counter()
+    sd.LAUNCHES = 0
+    mol = Mole(atom=PROPANE, basis="sto-3g", ecp=PSEUDO_C)
+    t0 = time.perf_counter()
+    ecp_matrix(mol)
+    ecp_s = time.perf_counter() - t0
+    mf = RHF(mol, conv_tol=1e-12, device=cuda)
+    e_hf, scf_s = wall(mf.kernel)
+    out = {}
+    with _env(QUEMB_TPU_CCSD_CONV_TOL="1e-9"):
+        for n_BE, e_ref in PROPANE_ECP_ECORR_REF.items():
+            fobj = qt.fragmentate(mol, n_BE=n_BE, print_frags=False)
+            be, init_s = wall(lambda: qt.BE(mf, fobj, device=cuda))
+            _, shot_s = wall(lambda: be.oneshot("CCSD"))
+            ecorr = be.ebe_tot - be.ebe_hf
+            out[f"be{n_BE}"] = dict(
+                n_frag=fobj.n_frag, hf_in_hf=be.hf_etot - be.ebe_hf,
+                ecorr=ecorr, ecorr_dev=ecorr - e_ref, init_s=init_s,
+                oneshot_s=shot_s)
+    launches = sd.LAUNCHES
+    phase(17, phase_s=time.perf_counter() - t_phase,
+          nao=mol.nao, nelectron=mol.nelectron, ecp_matrix_host_s=ecp_s,
+          e_hf=e_hf, e_hf_dev=e_hf - PROPANE_ECP_EHF_REF, scf_s=scf_s,
+          be=out, kernel_launches=launches, card=card)
+    if not (mf.converged and abs(e_hf - PROPANE_ECP_EHF_REF) < 1e-8):
+        raise AssertionError(f"propane ECP RHF {e_hf:.12f}")
+    for key, r in out.items():
+        if not abs(r["hf_in_hf"]) < 1e-6:
+            raise AssertionError(f"ECP {key} HF-in-HF {r['hf_in_hf']:.3e}")
+        if not abs(r["ecorr_dev"]) < 1e-8:
+            raise AssertionError(f"ECP {key} E_corr {r['ecorr']:.12f}")
+    return launches
+
+
+def _fragment_hf_energy(h1, h2, nocc):
+    """Closed-shell determinant energy of the lowest ``nocc`` orbitals of
+    ``h1`` against ``h2``: the same number in every orthonormal basis of a
+    fragment, so a dump in fragment orbitals is checked by it."""
+    _, C = np.linalg.eigh(h1)
+    D = C[:, :nocc] @ C[:, :nocc].T
+    J = np.einsum("pqrs,rs->pq", h2, D)
+    K = np.einsum("prqs,rs->pq", h2, D)
+    return float(np.einsum("pq,pq->", D, 2.0 * h1 - (2.0 * J - K)))
+
+
+def scanner_io(qt, sd, be_octane, card):
+    """Phase 18: the H6 scanner point, the fragment probe against the full
+    scanner at octane, FCIDUMP files of phase 6's BE in both bases read
+    back, and the timer table."""
+    from quemb_tpu_torch.chem.elements import BOHR2ANG
+    from quemb_tpu_torch.chem.mole import Mole
+    from quemb_tpu_torch.fragment.chemgen import ChemGenArgs
+    from quemb_tpu_torch.scanner import Energy, FragmentProbe
+    from quemb_tpu_torch.utils.io import be2fcidump, read_fcidump
+    from quemb_tpu_torch.utils.profiling import print_timings
+    from quemb_tpu_torch.utils.scratch import WorkDir
+
+    cuda = torch.device("cuda")
+    t_phase = time.perf_counter()
+    sd.LAUNCHES = 0
+    with _env(QUEMB_TPU_CCSD_CONV_TOL="1e-9"):
+        h6 = Mole(atom="; ".join(f"H 0 0 {i}.0" for i in range(6)),
+                  basis="sto-3g")
+        e_h6, h6_s = wall(lambda: Energy(
+            basis="sto-3g", n_BE=3, solver="CCSD", oneshot=True,
+            additional_args=ChemGenArgs(h_treatment="treat_H_like_heavy_atom"),
+            device=cuda).as_scanner()(h6))
+        mol = Mole.from_xyz_file(XYZ, basis="sto-3g")
+        scan = Energy(basis="sto-3g", n_BE=2, solver="CCSD", oneshot=True,
+                      device=cuda)
+        probe, probe_init_s = wall(lambda: FragmentProbe(mol, scan))
+        coords = mol.atom_coords()
+
+        def displaced(dz):
+            c = coords.copy()
+            c[PROBE_ATOM, 2] += dz
+            return Mole(atom=[(e, x * BOHR2ANG)
+                              for e, x in zip(mol.elements, c)],
+                        basis="sto-3g")
+
+        grads = {}
+        for name, fn in (("probe", probe), ("full", scan.as_scanner())):
+            (ep, em), s = wall(lambda: (fn(displaced(PROBE_STEP)),
+                                        fn(displaced(-PROBE_STEP))))
+            grads[name] = dict(grad=(ep - em) / (2 * PROBE_STEP), s=s)
+    grad_diff = grads["probe"]["grad"] - grads["full"]["grad"]
+    fcidump = {}
+    with WorkDir(os.path.join(HERE, "build", "smoke_fcidump")) as wd:
+        for basis in ("embedding", "fragment_mo"):
+            _, dump_s = wall(lambda: be2fcidump(be_octane, wd / basis,
+                                                basis))
+            err, e_err, scale, read_s = 0.0, 0.0, 0.0, 0.0
+            for i, fr in enumerate(be_octane.fragments):
+                t0 = time.perf_counter()
+                h1, h2, norb, nelec, _ = read_fcidump(wd / f"{basis}f{i}")
+                read_s += time.perf_counter() - t0
+                if (norb, nelec) != (fr.TA.shape[1], 2 * fr.nsocc):
+                    raise AssertionError(f"{basis} f{i}: {norb}, {nelec}")
+                fock, eri = fr.fock, fr.eri.cpu().numpy()
+                if basis == "embedding":
+                    err = max(err, np.abs(h1 - fock).max(),
+                              np.abs(h2 - eri).max())
+                    scale = max(scale, np.abs(eri).max())
+                e_err = max(e_err, abs(
+                    _fragment_hf_energy(h1, h2, fr.nsocc)
+                    - _fragment_hf_energy(fock, eri, fr.nsocc)))
+            fcidump[basis] = dict(write_s=dump_s, read_s=read_s,
+                                  max_abs_err=err,
+                                  max_abs_err_bar=FCIDUMP_DROP
+                                  + 1e-14 * scale,
+                                  fragment_hf_energy_err=e_err)
+    launches = sd.LAUNCHES
+    phase(18, phase_s=time.perf_counter() - t_phase,
+          h6_etot=e_h6, h6_dev=e_h6 - H6_SCANNER_REF, h6_s=h6_s,
+          probe_atom=PROBE_ATOM, probe_step=PROBE_STEP,
+          probe_init_s=probe_init_s, gradients=grads,
+          probe_minus_full_grad=grad_diff, fcidump=fcidump,
+          kernel_launches=launches, card=card)
+    print_timings()
+    if not abs(e_h6 - H6_SCANNER_REF) < 1e-8:
+        raise AssertionError(f"H6 scanner E_tot {e_h6:.12f}")
+    if not abs(grad_diff) < 1e-6:
+        raise AssertionError(f"probe - full gradient {grad_diff:.3e}")
+    for basis, r in fcidump.items():
+        if not (r["max_abs_err"] <= r["max_abs_err_bar"]
+                and r["fragment_hf_energy_err"] < 1e-10):
+            raise AssertionError(f"FCIDUMP {basis}: {r}")
     return launches
 
 
@@ -1118,6 +1425,7 @@ def main():
             f"matched E_corr {ecorr_m:.10f}: |dev| >= {MATCHED_TOL:g} Ha"
         )
 
+    be6 = be  # phase 18 writes its FCIDUMP files
     del be
     torch.cuda.empty_cache()
 
@@ -1144,7 +1452,15 @@ def main():
 
     # ---- 13-14. relaxed CCSD densities, the spin-orbital kernel and UBE
     later.update(octane_relaxed(qt, sd, mf, fobj, etot_matched, card))
-    later["hexene_anion_ube"] = hexene_anion_ube(qt, sd, card)
+    later["hexene_anion_ube"], ube_be1_ecorr = hexene_anion_ube(qt, sd,
+                                                                card)
+
+    # ---- 15-18. be2puffin with QM/MM, the fragmenters, ECPs, the scanner
+    # and the I/O
+    later["qmmm_be2puffin"] = qmmm_be2puffin(qt, sd, ube_be1_ecorr, card)
+    later["fragmenters"] = fragmenters(qt, sd, mf, card)
+    later["propane_ecp"] = propane_ecp(qt, sd, card)
+    later["scanner_io"] = scanner_io(qt, sd, be6, card)
 
     main = timed["octane_frag0"]
     print(json.dumps({"kernels": [{

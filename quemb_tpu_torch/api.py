@@ -2,17 +2,19 @@
 
 JAX counterpart: ``quemb_tpu/api.py``.  Mirrors the reference molbe
 ``BE``/``fragmentate`` entry points (reference molbe/mbe.py:173,
-molbe/fragment.py:22) for the restricted molecular driver: chemgen
-fragmentation with or without a frozen core, Lowdin, Boys, Pipek-Mezey,
-Edmiston-Ruedenberg or IAO+PAO localization, Schmidt embedding, the
-fragment ERI transform (``"in-core"`` and the density-fitted routes
-``"int-direct-DF"``, ``"sparse-DF"``, ``"on-fly-sparse-DF"`` and
+molbe/fragment.py:22) for the restricted molecular driver: chemgen,
+autogen or graphgen fragmentation with or without a frozen core, Lowdin,
+Boys, Pipek-Mezey, Edmiston-Ruedenberg or IAO+PAO localization, Schmidt
+embedding, the fragment ERI transform (``"in-core"`` and the density-fitted
+routes ``"int-direct-DF"``, ``"sparse-DF"``, ``"on-fly-sparse-DF"`` and
 ``"out-core-DF"``; under the f32 tier ``"sparse-DF"`` runs the screened-DF
 CUDA kernel), batched fragment initialization, the one-shot solve, density
 matching (``optimize``: analytic HF/MP2/CCSD or numerical Jacobian,
 quasi-Newton loop) with the CCSD, MP2, FCI, SCI and DMRG solvers, the
 save/restart file, and the full-basis RDMs and energy
-(``rdm1_fullbasis``, ``compute_energy_full``).
+(``rdm1_fullbasis``, ``compute_energy_full``).  ``initialize``,
+``oneshot`` and ``optimize`` add their walls to
+:data:`quemb_tpu_torch.utils.helper.timer`.
 
 Device work runs on an explicit ``torch.device``: ``BE(..., device=...)``
 defaults to CUDA and raises when no card is present; the CPU is used only
@@ -48,6 +50,7 @@ from quemb_tpu_torch.ops.df import _free_bytes, df_transform_batched
 from quemb_tpu_torch.ops.eri_transform import batched_mo_eri
 from quemb_tpu_torch.solvers.dispatch import be_func
 from quemb_tpu_torch.utils.device import resolve_device
+from quemb_tpu_torch.utils.helper import timer
 
 logger = logging.getLogger(__name__)
 
@@ -158,25 +161,58 @@ def fragmentate(
     frozen_core: bool = False,
     iao_valence_basis: str | None = None,
     print_frags: bool = True,
+    order_by_size: bool = False,
     additional_args: ChemGenArgs | None = None,
 ) -> FragPart:
-    """Fragment a molecule for BE (reference molbe/fragment.py:fragmentate).
-
-    chemgen only; autogen and graphgen are ROADMAP A15.
-    """
-    if frag_type != "chemgen":
-        raise NotImplementedError(
-            f"frag_type={frag_type!r}: only chemgen is ported (autogen and"
-            " graphgen are ROADMAP A15)"
+    """Fragment a molecule for BE (reference molbe/fragment.py:fragmentate):
+    chemgen, autogen or graphgen (``additional_args`` carries
+    :class:`ChemGenArgs` or :class:`GraphGenArgs`)."""
+    if frag_type == "chemgen":
+        result = chemgen(
+            mol,
+            n_BE=n_BE,
+            args=additional_args,
+            frozen_core=frozen_core,
+            iao_valence_basis=iao_valence_basis,
+            print_frags=print_frags,
         )
-    return chemgen(
-        mol,
-        n_BE=n_BE,
-        args=additional_args,
-        frozen_core=frozen_core,
-        iao_valence_basis=iao_valence_basis,
-        print_frags=print_frags,
-    )
+    elif frag_type == "autogen":
+        from quemb_tpu_torch.fragment.autogen import autogen  # noqa: PLC0415
+
+        result = autogen(
+            mol,
+            n_BE=n_BE,
+            frozen_core=frozen_core,
+            iao_valence_basis=iao_valence_basis,
+            print_frags=print_frags,
+        )
+    elif frag_type == "graphgen":
+        from quemb_tpu_torch.fragment.graphgen import (  # noqa: PLC0415
+            GraphGenArgs,
+            graphgen,
+        )
+
+        gargs = additional_args or GraphGenArgs()
+        result = graphgen(
+            mol,
+            n_BE=n_BE,
+            frozen_core=frozen_core,
+            iao_valence_basis=iao_valence_basis,
+            cutoff=gargs.cutoff,
+            remove_nonnunique_frags=gargs.remove_nonnunique_frags,
+            print_frags=print_frags,
+        )
+    else:
+        raise NotImplementedError(
+            f"frag_type={frag_type!r} is not implemented; "
+            'use "chemgen", "autogen", or "graphgen"'
+        )
+    if order_by_size:
+        idx = np.argsort(
+            [-len(aos) for aos in result.AO_per_frag], stable=True
+        )
+        result = result.reorder_frags(idx)
+    return result
 
 
 def _reorder_by_atom(Clo, aoind_by_atom, S, thr: float = 0.5):
@@ -471,6 +507,7 @@ class BE:
             self.lmo_coeff = self.W.T @ self.S @ self.C[:, self.ncore :]
 
     # ---------------------------------------------------------- initialize
+    @timer.timeit
     def initialize(self) -> None:
         t0 = time.perf_counter()
         fobj = self.fobj
@@ -610,6 +647,7 @@ class BE:
         return _init_fragment_buckets(self.fragments, self.device)
 
     # -------------------------------------------------------------- oneshot
+    @timer.timeit
     def oneshot(
         self, solver: str = "CCSD", use_cumulant: bool = True
     ) -> None:
@@ -636,6 +674,7 @@ class BE:
               f"E_tot = {self.ebe_tot:.10f} Ha")
 
     # ------------------------------------------------------------- optimize
+    @timer.timeit
     def optimize(
         self,
         solver: str = "CCSD",

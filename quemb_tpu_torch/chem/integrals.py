@@ -15,7 +15,7 @@ holds no jax).  One difference: the native library is required.  A failed
 build or validation raises (:func:`quemb_tpu_torch.native.get_lib`); the
 pure-Python routes below are the plain versions the library is held
 against, taken only when the caller asks (``QUEMB_TPU_NATIVE_ERI=0``, or
-``boys(..., native=False)``).  ECPs are not ported (ROADMAP A11, ECP).
+``boys(..., native=False)``).
 """
 
 from __future__ import annotations
@@ -437,9 +437,9 @@ def nuclear_attraction(mol: Mole) -> np.ndarray:
 def core_hamiltonian(mol: Mole) -> np.ndarray:
     h = kinetic(mol) + nuclear_attraction(mol)
     if getattr(mol, "ecp", None):
-        raise NotImplementedError(
-            "ECP core Hamiltonians are not ported (ROADMAP A11, ECP)"
-        )
+        from quemb_tpu_torch.chem.ecp import ecp_matrix
+
+        h = h + ecp_matrix(mol)
     return h
 
 

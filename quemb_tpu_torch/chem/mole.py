@@ -7,7 +7,7 @@ shells are sorted by angular momentum (all s shells, then p shells, ...);
 p components ordered (x, y, z).
 
 JAX counterpart: ``quemb_tpu/chem/mole.py``, of which this is a copy (it
-holds no jax), without ECPs.
+holds no jax).
 """
 
 from __future__ import annotations
@@ -111,17 +111,16 @@ class Mole:
     ):
         """cart=False builds real-spherical-harmonic AOs (the PySCF
         default for d and higher); the integral engine stays cartesian
-        internally with a block c2s transform at the interface.  ECPs are
-        not ported and raise (ROADMAP A11, ECP)."""
-        if ecp:
-            raise NotImplementedError(
-                "ECPs are not ported (ROADMAP A11, ECP)"
-            )
+        internally with a block c2s transform at the interface.
+        ``ecp``: per-element semi-local ECP spec (chem/ecp.py) -- reduces
+        the effective nuclear charges and adds <mu|V_ECP|nu> to hcore."""
+        from quemb_tpu_torch.chem.ecp import normalize_ecp
+
         self.cart = cart
         self.basis = basis
         self.charge = charge
         self.spin = spin  # 2S = Nalpha - Nbeta
-        self.ecp = {}
+        self.ecp = normalize_ecp(ecp)
         self._atoms: list[tuple[str, np.ndarray]] = []
         if atom is not None:
             self._parse_atoms(atom, unit)

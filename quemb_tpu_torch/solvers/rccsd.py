@@ -1,8 +1,8 @@
 """Closed-shell CCSD amplitude iteration, batched over fragments.
 
 JAX counterpart: ``quemb_tpu/solvers/rccsd.py`` (``_rdiis_stage``,
-``_rccsd_iterate``, ``_rccsd_from_mo_batched``, ``rccsd_large``).  The
-DIIS-accelerated loop drives
+``_rccsd_iterate``, ``_rccsd_from_mo_batched``, ``rccsd_large``,
+``solve_rccsd``).  The DIIS-accelerated loop drives
 :func:`quemb_tpu_torch.solvers.rccsd_mat.rccsd_update_mat` over a bucket
 held as a leading batch dimension (one fragment for ``rccsd_large``).  Where the JAX module
 vmaps a ``lax.while_loop``, this one runs a Python loop until every lane
@@ -30,18 +30,20 @@ from quemb_tpu_torch.solvers.rccsd_mat import rccsd_fused_blocks, \
 MAX_CYCLE = 150
 
 
-def _rdiis_stage(fb, moe_o, moe_v, t1_0, T2p_0, conv_tol):
+def _rdiis_stage(fb, moe_o, moe_v, t1_0, T2p_0, conv_tol, max_cycle=None):
     """DIIS-accelerated RCCSD iteration at the input dtype, to
-    ``conv_tol`` or ``MAX_CYCLE`` steps (:func:`_diis_loop`).  Returns
-    (t1 [nf, no, nv], T2p [nf, no^2, nv^2], n_it [nf], delta [nf] f64).
+    ``conv_tol`` or ``max_cycle`` steps (default ``MAX_CYCLE``;
+    :func:`_diis_loop`).  Returns (t1 [nf, no, nv], T2p [nf, no^2,
+    nv^2], n_it [nf], delta [nf] f64).
     """
     def step(t1, T2p):
         return rccsd_update_mat(t1, T2p, moe_o, moe_v, fb)[:2]
 
-    return _diis_loop(step, t1_0, T2p_0, conv_tol, MAX_CYCLE)
+    return _diis_loop(step, t1_0, T2p_0, conv_tol,
+                      MAX_CYCLE if max_cycle is None else max_cycle)
 
 
-def _rccsd_iterate(moe_o, moe_v, fb: dict, conv_tol=None):
+def _rccsd_iterate(moe_o, moe_v, fb: dict, conv_tol=None, max_cycle=None):
     """Closed-shell CCSD from MP2-like starting amplitudes, batched.
 
     Returns spatial (t1 [nf, no, nv], t2 [nf, no, no, nv, nv], n_it,
@@ -59,13 +61,13 @@ def _rccsd_iterate(moe_o, moe_v, fb: dict, conv_tol=None):
     t1_0 = torch.zeros((nf, no, nv), dtype=dtype, device=moe_o.device)
     T2p_0 = fb["Vp"] / Doovv
     t1f, T2pf, it, delta = _rdiis_stage(
-        fb, moe_o, moe_v, t1_0, T2p_0, conv_tol
+        fb, moe_o, moe_v, t1_0, T2p_0, conv_tol, max_cycle
     )
     return t1f, T2pf.reshape(nf, no, no, nv, nv), it, delta
 
 
 def _rccsd_from_mo_batched(eri_mo_b, moe_b, nsocc: int,
-                           f32_only: bool = False):
+                           f32_only: bool = False, max_cycle=None):
     """Fused-block build + RCCSD iteration for a bucket.
 
     eri_mo_b [nf, nmo]^4 chemist, moe_b [nf, nmo], both f64.  Returns f64
@@ -75,11 +77,12 @@ def _rccsd_from_mo_batched(eri_mo_b, moe_b, nsocc: int,
         fb = rccsd_fused_blocks(eri_mo_b.float(), nsocc)
         t1f, t2f, it, delta = _rccsd_iterate(
             moe_b[:, :nsocc].float(), moe_b[:, nsocc:].float(), fb,
-            conv_tol=_f32_tol(),
+            conv_tol=_f32_tol(), max_cycle=max_cycle,
         )
         return t1f.double(), t2f.double(), it, delta
     fb = rccsd_fused_blocks(eri_mo_b, nsocc)
-    return _rccsd_iterate(moe_b[:, :nsocc], moe_b[:, nsocc:], fb)
+    return _rccsd_iterate(moe_b[:, :nsocc], moe_b[:, nsocc:], fb,
+                          max_cycle=max_cycle)
 
 
 def rccsd_large(eri_mo, moe, nsocc: int):
@@ -94,3 +97,31 @@ def rccsd_large(eri_mo, moe, nsocc: int):
         eri_mo[None], moe[None], nsocc, f32_only=_f32_only()
     )
     return t1[0], t2[0], int(it[0]), float(delta[0])
+
+
+def solve_rccsd(eri_mo, moe, nsocc: int, conv_tol=1e-9, max_cycle=150):
+    """Single-fragment closed-shell CCSD in f64, on the device of
+    ``eri_mo`` [nmo]^4 (chemist) and ``moe`` [nmo]; the amplitudes
+    converge to ``QUEMB_TPU_CCSD_CONV_TOL`` and a step above
+    ``conv_tol`` after ``max_cycle`` iterations warns, as in the JAX
+    function.  Returns (t1 [no, nv], t2 [no, no, nv, nv] there, e_corr).
+    """
+    import warnings
+
+    eri_mo = torch.as_tensor(eri_mo, dtype=torch.float64)
+    moe = torch.as_tensor(moe, dtype=torch.float64, device=eri_mo.device)
+    t1f, t2f, _, delta = _rccsd_from_mo_batched(
+        eri_mo[None], moe[None], nsocc, max_cycle=max_cycle
+    )
+    if float(delta[0]) > conv_tol:
+        warnings.warn(
+            f"RCCSD did not converge: |dt| = {float(delta[0]):.2e}"
+        )
+    no = nsocc
+    t1, t2 = t1f[0], t2f[0]
+    ovov = eri_mo[:no, no:, :no, no:]
+    tf = t2 + torch.einsum("ia,jb->ijab", t1, t1)
+    e_corr = torch.einsum("ijab,iajb->", tf, 2.0 * ovov) - torch.einsum(
+        "ijab,ibja->", tf, ovov
+    )
+    return t1, t2, float(e_corr)

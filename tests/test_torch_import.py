@@ -11,22 +11,28 @@ MODULES = (
     "quemb_tpu_torch",
     "quemb_tpu_torch.api",
     "quemb_tpu_torch.config",
+    "quemb_tpu_torch.chem.ecp",
     "quemb_tpu_torch.chem.integrals",
     "quemb_tpu_torch.chem.mole",
     "quemb_tpu_torch.chem.scf",
     "quemb_tpu_torch.chem.sph",
+    "quemb_tpu_torch.fragment.autogen",
+    "quemb_tpu_torch.fragment.graphgen",
     "quemb_tpu_torch.lo.iao",
     "quemb_tpu_torch.lo.jacobi",
     "quemb_tpu_torch.matching.beopt",
     "quemb_tpu_torch.matching.cphf",
     "quemb_tpu_torch.matching.numerical_jac",
     "quemb_tpu_torch.matching.optqn",
+    "quemb_tpu_torch.mf_interfaces",
+    "quemb_tpu_torch.misc",
     "quemb_tpu_torch.native",
     "quemb_tpu_torch.native.eri_native",
     "quemb_tpu_torch.ops.df",
     "quemb_tpu_torch.ops.eri_transform",
     "quemb_tpu_torch.ops.screened_df",
     "quemb_tpu_torch.ops.sparse_df",
+    "quemb_tpu_torch.scanner",
     "quemb_tpu_torch.solvers.ccsd",
     "quemb_tpu_torch.solvers.ccsd_mat",
     "quemb_tpu_torch.solvers.ccsd_relaxed",
@@ -40,6 +46,10 @@ MODULES = (
     "quemb_tpu_torch.ube",
     "quemb_tpu_torch.utils.device",
     "quemb_tpu_torch.utils.geometry",
+    "quemb_tpu_torch.utils.helper",
+    "quemb_tpu_torch.utils.io",
+    "quemb_tpu_torch.utils.profiling",
+    "quemb_tpu_torch.utils.scratch",
 )
 
 
@@ -66,7 +76,10 @@ def test_every_module_is_listed_and_names_no_jax():
     for m in ("native", "native.eri_native", "config", "utils.geometry",
               "chem.integrals", "chem.sph", "lo.iao", "lo.jacobi",
               "solvers.sci", "solvers.dmrg", "solvers.ccsd_mat",
-              "solvers.ccsd_relaxed", "solvers.uccsd", "ube"):
+              "solvers.ccsd_relaxed", "solvers.uccsd", "ube", "chem.ecp",
+              "fragment.autogen", "fragment.graphgen", "misc",
+              "mf_interfaces", "scanner", "utils.helper", "utils.io",
+              "utils.profiling", "utils.scratch"):
         assert f"quemb_tpu_torch.{m}" in MODULES
     bad = re.compile(
         r"^\s*(import|from)\s+(jax|quemb_tpu)(\.|\s|$)", re.MULTILINE

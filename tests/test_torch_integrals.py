@@ -147,5 +147,14 @@ def test_alkane_atoms_and_ecp():
         assert [s for s, _ in a] == [s for s, _ in b]
         assert np.array_equal(np.array([x for _, x in a]),
                               np.array([x for _, x in b]))
-    with pytest.raises(NotImplementedError, match="A11, ECP"):
-        Mole(atom="Na 0 0 0; H 0 0 1.9", basis="sto-3g", ecp={"Na": "x"})
+    # ECPs are ported: the effective charges, the electron count and the
+    # core Hamiltonian (ECP quadrature included) equal the JAX package's
+    ecp = {"C": {"ncore": 2, "local": [(2, 4.5, 8.0), (1, 2.8, 2.0)],
+                 "semilocal": {0: [(2, 6.0, 10.0)]}}}
+    kw = dict(atom="C 0 0 0; H 0 0 1.09; H 1.03 0 -0.36", basis="sto-3g",
+              spin=0, charge=-1, ecp=ecp)
+    mol, jmol = Mole(**kw), JMole(**kw)
+    assert mol.nelectron == jmol.nelectron == 7
+    assert np.array_equal(mol.atom_charges(), jmol.atom_charges())
+    h, jh = tint.core_hamiltonian(mol), jint.core_hamiltonian(jmol)
+    assert np.abs(h - jh).max() <= COPY_TOL * np.abs(jh).max()

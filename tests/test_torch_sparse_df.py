@@ -85,8 +85,9 @@ def test_f32_fragment_eri_matches_jax(h8, ifrag):
 @pytest.mark.parametrize("what", ["f64-tier", "auxbasis", "constructor"])
 def test_unported_sparse_df_paths_raise(h8, monkeypatch, what):
     """The sparse-DF paths that used to raise are ported; each case runs
-    its path and checks what still raises beside it: ECPs (ROADMAP A11),
-    an unknown auxiliary-basis spec, an unknown tier."""
+    its path and checks beside it what once raised or still raises: an ECP
+    (ported since: its core Hamiltonian is the plain one plus the ECP
+    matrix), an unknown auxiliary-basis spec, an unknown tier."""
     jmol, mol, mf, B, TAs = h8
     monkeypatch.delenv("QUEMB_TPU_CCSD_F32_ONLY", raising=False)
     if what == "f64-tier":
@@ -94,8 +95,14 @@ def test_unported_sparse_df_paths_raise(h8, monkeypatch, what):
                    int_transform="sparse-DF", auxbasis="cholesky",
                    device="cpu")
         assert abs(be.ebe_hf - mf.e_tot) < 1e-6
-        with pytest.raises(NotImplementedError, match="A11, ECP"):
-            Mole(atom=ATOM, basis="sto-3g", ecp={"H": "none"})
+        from quemb_tpu_torch.chem.ecp import ecp_matrix
+        from quemb_tpu_torch.chem.integrals import core_hamiltonian
+
+        emol = Mole(atom=ATOM, basis="sto-3g",
+                    ecp={"H": {"ncore": 0, "local": [(2, 1.1, 1.0)]}})
+        assert emol.nelectron == mol.nelectron
+        assert np.abs(core_hamiltonian(emol) - core_hamiltonian(mol)
+                      - ecp_matrix(emol)).max() < 1e-12
     elif what == "auxbasis":
         kind, aux = tdf.resolve_auxbasis(mol, "etb:2.0")
         assert kind == "mol" and aux.nao > mol.nao

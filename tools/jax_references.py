@@ -1,4 +1,4 @@
-"""Reference energies of ``chip_smoke.py`` phases 13 and 14, on the CPU.
+"""Reference energies of ``chip_smoke.py`` phases 13-17, on the CPU.
 
     JAX_PLATFORMS=cpu python3 tools/jax_references.py CASE
         [--package jax|torch]
@@ -14,7 +14,20 @@
 - ``hexene-anion-ube`` (phase 14): the hexene anion (STO-3G, charge -1,
   spin 1), ``UHF(conv_tol=1e-10)``, then with a frozen core one-shot
   ``UBE`` BE1 and BE2 with UCCSD, as ``tests/test_ube_hexene.py`` runs
-  them.  A few minutes.
+  them.  A few minutes;
+- ``octane-qmmm`` (phase 15): ``be2puffin`` on ``tests/data/xyz/octane.xyz``
+  (STO-3G, BE2, no frozen core) with the four point charges of
+  ``tests/test_aux_surface.py:328-331``, its own QM/MM RHF, CCSD tolerance
+  1e-9; E_corr, and E_HF and HF-in-HF of the BE it builds.  About a
+  minute;
+- ``octane-autogen`` (phase 16): octane BE2 from
+  ``fixtures/octane_sto3g_hf.npz``, ``frag_type="autogen"``,
+  ``BE.optimize(solver="CCSD")`` at CCSD tolerance 1e-6 (as phase 6);
+  then one-shot E_corr of chemgen and graphgen at the same tolerance.
+  A few minutes;
+- ``propane-ecp`` (phase 17): propane with the synthetic carbon ECP of
+  ``tests/test_ecp.py`` (``_PSEUDO_C``), ``RHF(conv_tol=1e-12)``, one-shot
+  BE1 and BE2 CCSD at tolerance 1e-9.  Seconds.
 
 Each runs through the JAX package (default; plain f64 CCSD) or through the
 port (``device="cpu"``) and prints one JSON line per energy, with the
@@ -35,13 +48,13 @@ OCTANE_XYZ = os.path.join(ROOT, "tests", "data", "xyz", "octane.xyz")
 HEXENE_XYZ = os.path.join(ROOT, "tests", "data", "xyz", "hexene.xyz")
 
 
-def _octane_be(package):
+def _octane_be(package, frag_type="chemgen"):
     if package == "torch":
         import quemb_tpu_torch as qt
         from quemb_tpu_torch.chem.scf import load_fixture
 
         mf = load_fixture(FIXTURE, OCTANE_XYZ, device="cpu")
-        return qt.BE(mf, qt.fragmentate(mf.mol, n_BE=2, frag_type="chemgen",
+        return qt.BE(mf, qt.fragmentate(mf.mol, n_BE=2, frag_type=frag_type,
                                         print_frags=False), device="cpu")
     import numpy as np
 
@@ -58,7 +71,7 @@ def _octane_be(package):
     mf.mo_coeff, mf.mo_energy = d["C"], d["moe"]
     mf.e_tot = float(d["e_tot"])
     mf.converged = True
-    return BE(mf, fragmentate(mol=mol, n_BE=2, frag_type="chemgen",
+    return BE(mf, fragmentate(mol=mol, n_BE=2, frag_type=frag_type,
                               print_frags=False))
 
 
@@ -115,8 +128,124 @@ def hexene_anion_ube(package):
                "s": time.perf_counter() - t0}
 
 
+#: tests/test_aux_surface.py:328-331: MM charges and their coordinates (Bohr)
+QMMM_CHARGES = [-0.2, -0.1, 0.15, 0.2]
+QMMM_COORDS = [(-3, -8, -2), (-2, 6, 1), (2, -5, 2), (1, 8, 1.5)]
+#: tests/test_ecp.py: propane and its synthetic 2-electron-core carbon ECP
+PROPANE = (
+    "C 0 0 0; C 1.26 0.86 0; C 2.52 0 0;"
+    "H -0.55 0.94 0; H -0.55 -0.55 0.8; H -0.55 -0.55 -0.8;"
+    "H 1.26 1.5 0.88; H 1.26 1.5 -0.88;"
+    "H 3.07 0.94 0; H 3.07 -0.55 0.8; H 3.07 -0.55 -0.8"
+)
+PSEUDO_C = {"C": {"ncore": 2, "local": [(2, 4.5, 8.0), (1, 2.8, 2.0)],
+                  "semilocal": {0: [(2, 6.0, 10.0)]}}}
+
+
+def _captured_be(package):
+    """A context in which every BE the package builds is appended to the
+    list it yields."""
+    import contextlib
+
+    if package == "torch":
+        import quemb_tpu_torch as pkg
+    else:
+        import quemb_tpu as pkg
+
+    @contextlib.contextmanager
+    def ctx():
+        made, inner = [], pkg.BE
+
+        class Captured(inner):
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                made.append(self)
+
+        pkg.BE = Captured
+        try:
+            yield made
+        finally:
+            pkg.BE = inner
+
+    return ctx()
+
+
+def octane_qmmm(package):
+    import numpy as np
+
+    os.environ["QUEMB_TPU_CCSD_CONV_TOL"] = "1e-9"
+    if package == "torch":
+        from quemb_tpu_torch.misc import be2puffin
+
+        kw = dict(device="cpu")
+    else:
+        from quemb_tpu.misc import be2puffin
+
+        kw = {}
+    t0 = time.perf_counter()
+    with _captured_be(package) as made:
+        ecorr = be2puffin(
+            OCTANE_XYZ, "sto-3g", n_BE=2, frozen_core=False,
+            pts_and_charges=(np.array(QMMM_COORDS, float),
+                             np.array(QMMM_CHARGES)), **kw)
+    be = made[0]
+    yield {"ecorr": ecorr, "e_hf": be.hf_etot,
+           "hf_in_hf": be.hf_etot - be.ebe_hf,
+           "s": time.perf_counter() - t0}
+
+
+def octane_autogen(package):
+    os.environ["QUEMB_TPU_CCSD_CONV_TOL"] = "1e-6"
+    be = _octane_be(package, frag_type="autogen")
+    t0 = time.perf_counter()
+    be.optimize(solver="CCSD")
+    yield {"frag_type": "autogen", "n_frag": len(be.fragments),
+           "ebe_tot": be.ebe_tot, "ecorr": be.ebe_tot - be.ebe_hf,
+           "hf_in_hf": be.hf_etot - be.ebe_hf,
+           "s": time.perf_counter() - t0}
+    for frag_type in ("chemgen", "graphgen"):
+        be = _octane_be(package, frag_type=frag_type)
+        t0 = time.perf_counter()
+        be.oneshot(solver="CCSD")
+        yield {"frag_type": frag_type, "n_frag": len(be.fragments),
+               "oneshot_ecorr": be.ebe_tot - be.ebe_hf,
+               "hf_in_hf": be.hf_etot - be.ebe_hf,
+               "s": time.perf_counter() - t0}
+
+
+def propane_ecp(package):
+    os.environ["QUEMB_TPU_CCSD_CONV_TOL"] = "1e-9"
+    if package == "torch":
+        import quemb_tpu_torch as pkg
+        from quemb_tpu_torch.chem.mole import Mole
+        from quemb_tpu_torch.chem.scf import RHF
+
+        kw = dict(device="cpu")
+    else:
+        import quemb_tpu as pkg
+        from quemb_tpu.chem.mole import Mole
+        from quemb_tpu.chem.scf import RHF
+
+        kw = {}
+    mol = Mole(atom=PROPANE, basis="sto-3g", ecp=PSEUDO_C)
+    mf = RHF(mol, conv_tol=1e-12, **kw)
+    mf.kernel()
+    yield {"nelectron": mol.nelectron, "e_hf": mf.e_tot,
+           "converged": mf.converged}
+    for n_BE in (1, 2):
+        fobj = pkg.fragmentate(mol, n_BE=n_BE, frag_type="chemgen",
+                               print_frags=False)
+        be = pkg.BE(mf, fobj, **kw)
+        be.oneshot(solver="CCSD")
+        yield {"n_BE": n_BE, "ecorr": be.ebe_tot - be.ebe_hf,
+               "hf_in_hf": be.hf_etot - be.ebe_hf}
+
+
 CASES = {"octane-relaxed": octane_relaxed,
-         "hexene-anion-ube": hexene_anion_ube}
+         "hexene-anion-ube": hexene_anion_ube,
+         "octane-qmmm": octane_qmmm,
+         "octane-autogen": octane_autogen,
+         "propane-ecp": propane_ecp}
 
 
 def main():

@@ -17,9 +17,8 @@ JAX counterpart: ``quemb_tpu/mf_interfaces.py``.  The file format and the
 ORCA readers are copies, so a file that either package dumps loads in the
 other.  ``load_scf``, ``mf_from_orca_json`` and ``run_orca`` take the
 port's ``device=`` keyword: the mean field they return is bound to it
-(CUDA unless the caller names the CPU; no card raises).  ``dump_kscf`` and
-``load_kscf`` need the periodic package, which is not ported yet (ROADMAP
-A16), and raise.
+(CUDA unless the caller names the CPU; no card raises), and so does
+``load_kscf``: its KRHF is the port's (``kbe/scf.py``).
 """
 
 from __future__ import annotations
@@ -86,19 +85,54 @@ def load_scf(chkfile, device: torch.device | str | None = None):
 
 
 def dump_kscf(mf, chkfile) -> None:
-    """Store a converged KRHF (reference kbe/mf_interfaces/main.py): needs
-    the periodic package, which is not ported (ROADMAP A16)."""
-    raise NotImplementedError(
-        "dump_kscf needs the periodic package kbe/ (ROADMAP A16)"
+    """Store a converged KRHF (reference kbe/mf_interfaces/main.py)."""
+    payload = _mol_payload(mf.cell)
+    payload.update(
+        a=mf.cell.a,
+        kpts=mf.kpts,
+        e_tot=np.float64(mf.e_tot),
+        mo_energy=np.asarray(mf.mo_energy),
+        mo_coeff=np.asarray(mf.mo_coeff),
+        hf_veff=np.asarray(mf.hf_veff),
+        S=np.asarray(mf.get_ovlp()),
+        hcore=np.asarray(mf.get_hcore()),
     )
+    np.savez(chkfile, **payload)
 
 
-def load_kscf(chkfile):
-    """Recreate (cell, converged KRHF-like) from a KRHF dump: needs the
-    periodic package, which is not ported (ROADMAP A16)."""
-    raise NotImplementedError(
-        "load_kscf needs the periodic package kbe/ (ROADMAP A16)"
+def load_kscf(chkfile, device: torch.device | str | None = None):
+    """Recreate (cell, converged KRHF) from :func:`dump_kscf`; the KRHF
+    and its (unbuilt) ``KGDF`` run on ``device``.
+
+    The cached S/hcore/veff ship in the file, so no periodic integral
+    rebuild is needed to construct a kbe.BE -- only the DF build for the
+    embedding ERI transform.
+    """
+    from quemb_tpu_torch.kbe.cell import Cell  # noqa: PLC0415
+    from quemb_tpu_torch.kbe.scf import KRHF  # noqa: PLC0415
+
+    dev = resolve_device(device, "load_kscf")
+    data = np.load(chkfile, allow_pickle=False)
+    atoms = [
+        (str(sym), xyz)
+        for sym, xyz in zip(data["elements"], data["coords_bohr"])
+    ]
+    cell = Cell(
+        atom=atoms,
+        a=data["a"],
+        basis=str(data["basis"]),
+        charge=int(data["charge"]),
+        unit="bohr",
     )
+    mf = KRHF(cell, data["kpts"], device=dev)
+    mf.mo_coeff = data["mo_coeff"]
+    mf.mo_energy = data["mo_energy"]
+    mf.e_tot = float(data["e_tot"])
+    mf.hf_veff = data["hf_veff"]
+    mf._S = data["S"]
+    mf._hcore = data["hcore"]
+    mf.converged = True
+    return cell, mf
 
 
 # ------------------------------------------------------- ORCA JSON reader

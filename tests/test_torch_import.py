@@ -11,6 +11,7 @@ MODULES = (
     "quemb_tpu_torch",
     "quemb_tpu_torch.api",
     "quemb_tpu_torch.config",
+    "quemb_tpu_torch.embed.energy",
     "quemb_tpu_torch.chem.ecp",
     "quemb_tpu_torch.chem.integrals",
     "quemb_tpu_torch.chem.mole",
@@ -18,6 +19,17 @@ MODULES = (
     "quemb_tpu_torch.chem.sph",
     "quemb_tpu_torch.fragment.autogen",
     "quemb_tpu_torch.fragment.graphgen",
+    "quemb_tpu_torch.kbe",
+    "quemb_tpu_torch.kbe.cell",
+    "quemb_tpu_torch.kbe.df",
+    "quemb_tpu_torch.kbe.exact4c",
+    "quemb_tpu_torch.kbe.fragment",
+    "quemb_tpu_torch.kbe.lo",
+    "quemb_tpu_torch.kbe.pbc_int",
+    "quemb_tpu_torch.kbe.pbe",
+    "quemb_tpu_torch.kbe.pfrag",
+    "quemb_tpu_torch.kbe.scf",
+    "quemb_tpu_torch.kbe.wannier",
     "quemb_tpu_torch.lo.iao",
     "quemb_tpu_torch.lo.jacobi",
     "quemb_tpu_torch.matching.beopt",
@@ -68,7 +80,8 @@ def _walk():
 
 def test_every_module_is_listed_and_names_no_jax():
     """The list above covers the new host modules, and no source file of
-    the port (nor chip_smoke.py) imports jax or the JAX package."""
+    the port (nor chip_smoke.py or tools/profile_port.py) imports jax or
+    the JAX package."""
     import re
 
     walked = dict(_walk())
@@ -79,12 +92,16 @@ def test_every_module_is_listed_and_names_no_jax():
               "solvers.ccsd_relaxed", "solvers.uccsd", "ube", "chem.ecp",
               "fragment.autogen", "fragment.graphgen", "misc",
               "mf_interfaces", "scanner", "utils.helper", "utils.io",
-              "utils.profiling", "utils.scratch"):
+              "utils.profiling", "utils.scratch", "embed.energy", "kbe",
+              "kbe.cell", "kbe.df", "kbe.exact4c", "kbe.fragment", "kbe.lo",
+              "kbe.pbc_int", "kbe.pbe", "kbe.pfrag", "kbe.scf",
+              "kbe.wannier"):
         assert f"quemb_tpu_torch.{m}" in MODULES
     bad = re.compile(
         r"^\s*(import|from)\s+(jax|quemb_tpu)(\.|\s|$)", re.MULTILINE
     )
     walked["chip_smoke"] = os.path.join(ROOT, "chip_smoke.py")
+    walked["profile_port"] = os.path.join(ROOT, "tools", "profile_port.py")
     for name, path in walked.items():
         with open(path) as fh:
             assert not bad.search(fh.read()), name

@@ -480,9 +480,25 @@ def test_dump_load_uhf_and_kscf(tmp_path):
     assert isinstance(jmf, JUHF) and abs(jmf.e_tot - mf.e_tot) < 1e-12
     mol2, mf2 = mfi.load_scf(str(tmp_path / "u.npz"), **CPU)
     assert isinstance(mf2, UHF) and mol2.spin == 1
-    for fn in (lambda: mfi.dump_kscf(mf, "x"), lambda: mfi.load_kscf("x")):
-        with pytest.raises(NotImplementedError, match="A16"):
-            fn()
+    # a KRHF dumped by the JAX package loads into the port's KRHF on the
+    # CPU, and the port's dump of it back into the JAX package, unchanged
+    from quemb_tpu.kbe import KRHF as JKRHF, Cell as JCell
+    from quemb_tpu_torch.kbe import KRHF as KRHF_
+
+    cell = JCell(atom="H 0 0 0; H 0 0 0.8", a=np.diag([6.0, 6.0, 2.4]),
+                 basis="sto-3g")
+    kmf = JKRHF(cell, cell.make_kpts([1, 1, 2]))
+    kmf.kernel()
+    jmfi.dump_kscf(kmf, str(tmp_path / "k.npz"))
+    cell2, kmf2 = mfi.load_kscf(str(tmp_path / "k.npz"), **CPU)
+    assert isinstance(kmf2, KRHF_) and kmf2.device == torch.device("cpu")
+    mfi.dump_kscf(kmf2, str(tmp_path / "k2.npz"))
+    _, kmf3 = jmfi.load_kscf(str(tmp_path / "k2.npz"))
+    assert kmf3.e_tot == kmf2.e_tot == kmf.e_tot
+    for a in (lambda m: m.mo_coeff, lambda m: m.hf_veff,
+              lambda m: m.get_ovlp(), lambda m: m.get_hcore()):
+        assert np.array_equal(a(kmf3), a(kmf)) and \
+            np.array_equal(a(kmf2), a(kmf))
 
 
 ORCA_JSON = os.path.join(DATA, "h2o_cc-pvqz_orca.json")

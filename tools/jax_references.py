@@ -1,4 +1,4 @@
-"""Reference energies of ``chip_smoke.py`` phases 13-17, on the CPU.
+"""Reference energies of ``chip_smoke.py`` phases 13-17 and 19, on the CPU.
 
     JAX_PLATFORMS=cpu python3 tools/jax_references.py CASE
         [--package jax|torch]
@@ -27,7 +27,22 @@
   A few minutes;
 - ``propane-ecp`` (phase 17): propane with the synthetic carbon ECP of
   ``tests/test_ecp.py`` (``_PSEUDO_C``), ``RHF(conv_tol=1e-12)``, one-shot
-  BE1 and BE2 CCSD at tolerance 1e-9.  Seconds.
+  BE1 and BE2 CCSD at tolerance 1e-9.  Seconds;
+- ``polyacetylene-kbe`` (phase 19): the polyacetylene cell of
+  ``tests/test_kbe.py:117-129`` (STO-3G, 1x1x3 k-points), the default
+  ``KGDF`` (``make_etb_aux(l_extra=1)``) built once, ``KRHF(omega=0.6,
+  conv_tol=1e-11)``, then with a frozen core ``kbe.BE`` on chemgen and on
+  autogen BE2 fragments, each ``optimize(solver="CCSD")`` at the default
+  CCSD tolerance.  KRHF ``e_tot``, ``E_core``, ``ebe_hf``, HF-in-HF and
+  both matched ``ebe_tot``.  About 13 minutes to the first ``BE`` for
+  JAX on the CPU (the host ``KGDF.build`` and the KRHF), then the two
+  matchings; the port's KRHF converges in about 12 cycles where the JAX
+  package's stops unconverged at its 300-cycle cap;
+- ``polyacetylene-krhf-cross``: that cell's KRHF through the port on the
+  CPU, then the JAX package's Fock build at the port's converged density
+  (its energy and max|FDS - SDF|) and the JAX package's SCF started from
+  that density (40 cycles).  Both packages build their KGDF (about 8
+  minutes); ``--package`` is ignored.
 
 Each runs through the JAX package (default; plain f64 CCSD) or through the
 port (``device="cpu"``) and prints one JSON line per energy, with the
@@ -241,11 +256,97 @@ def propane_ecp(package):
                "hf_in_hf": be.hf_etot - be.ebe_hf}
 
 
+#: tests/test_kbe.py:117-129: the polyacetylene cell (Angstrom)
+POLYACETYLENE = """
+H      1.4285621630072645    0.0    -0.586173422487319
+C      0.3415633681566205    0.0    -0.5879921146011252
+H     -1.4285621630072645    0.0     0.586173422487319
+C     -0.3415633681566205    0.0     0.5879921146011252
+H      1.4285621630072645    0.0     1.868826577512681
+C      0.3415633681566205    0.0     1.867007885398875
+H     -1.4285621630072645    0.0     3.041173422487319
+C     -0.3415633681566205    0.0     3.0429921146011254
+"""
+POLYACETYLENE_LATTICE = ((8.0, 0.0, 0.0), (0.0, 8.0, 0.0),
+                         (0.0, 0.0, 2.455 * 2))
+
+
+def polyacetylene_kbe(package):
+    import numpy as np
+
+    if package == "torch":
+        from quemb_tpu_torch import kbe
+
+        kw = dict(device="cpu")
+    else:
+        from quemb_tpu import kbe
+
+        kw = {}
+    cell = kbe.Cell(atom=POLYACETYLENE, a=np.array(POLYACETYLENE_LATTICE),
+                    basis="sto-3g")
+    kpts = cell.make_kpts([1, 1, 3])
+    t0 = time.perf_counter()
+    gdf = kbe.KGDF(cell, kpts, omega=0.6, **kw).build()
+    yield {"naux": gdf.naux, "kgdf_build_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    mf = kbe.KRHF(cell, kpts, with_df=gdf, omega=0.6, conv_tol=1e-11, **kw)
+    mf.kernel()
+    yield {"krhf_e_tot": mf.e_tot, "converged": bool(mf.converged),
+           "cycles": getattr(mf, "cycles", None),
+           "krhf_s": time.perf_counter() - t0}
+    for frag_type in ("chemgen", "autogen"):
+        fobj = kbe.fragmentate(mol=cell, kpt=[1, 1, 3], n_BE=2,
+                               frag_type=frag_type, frozen_core=True)
+        t0 = time.perf_counter()
+        be = kbe.BE(mf, fobj, kpts=kpts, **kw)
+        line = {"frag_type": frag_type, "n_frag": len(be.fragments),
+                "nemb": [int(f.nao) for f in be.fragments],
+                "E_core": be.E_core, "ek": be.ek, "ebe_hf": be.ebe_hf,
+                "hf_in_hf": mf.e_tot - (be.ebe_hf + be.ek),
+                "be_s": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        be.optimize(solver="CCSD")
+        yield {**line, "ebe_tot": be.ebe_tot,
+               "optimize_s": time.perf_counter() - t0}
+
+
+def polyacetylene_krhf_cross(package):
+    import numpy as np
+
+    from quemb_tpu import kbe as jkbe
+    from quemb_tpu_torch import kbe
+
+    lattice = np.array(POLYACETYLENE_LATTICE)
+    cell = kbe.Cell(atom=POLYACETYLENE, a=lattice, basis="sto-3g")
+    kpts = cell.make_kpts([1, 1, 3])
+    mf = kbe.KRHF(cell, kpts, omega=0.6, conv_tol=1e-11, device="cpu")
+    mf.kernel()
+    yield {"port_e_tot": mf.e_tot, "converged": bool(mf.converged),
+           "cycles": mf.cycles}
+    jcell = jkbe.Cell(atom=POLYACETYLENE, a=lattice, basis="sto-3g")
+    jmf = jkbe.KRHF(jcell, kpts, omega=0.6, conv_tol=1e-11)
+    jmf.with_df.build()
+    h, S, dm = jmf.get_hcore(), jmf.get_ovlp(), mf.hf_dm
+    veff = jmf.get_veff(dm)
+    F = h + veff
+    e = np.mean([np.einsum("uv,vu->", h[k] + 0.5 * veff[k], dm[k])
+                 for k in range(len(kpts))]).real + jcell.ewald()
+    err = max(np.abs(F[k] @ dm[k] @ S[k] - S[k] @ dm[k] @ F[k]).max()
+              for k in range(len(kpts)))
+    yield {"jax_energy_at_port_density": e,
+           "jax_commutator_at_port_density": err}
+    jmf.max_cycle = 40
+    yield {"jax_scf_from_port_density_40": jmf.kernel(dm0=dm),
+           "converged": bool(jmf.converged)}
+
+
 CASES = {"octane-relaxed": octane_relaxed,
          "hexene-anion-ube": hexene_anion_ube,
          "octane-qmmm": octane_qmmm,
          "octane-autogen": octane_autogen,
-         "propane-ecp": propane_ecp}
+         "propane-ecp": propane_ecp,
+         "polyacetylene-kbe": polyacetylene_kbe,
+         "polyacetylene-krhf-cross": polyacetylene_krhf_cross}
 
 
 def main():

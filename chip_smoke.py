@@ -9,8 +9,9 @@ density-fitted long chain C40H82 (STO-3G, nao 282, ``etb:6.0``, naux 3460,
 through the rest of the restricted driver (frozen core, IAO+PAO, the
 large-fragment path, full-basis RDMs, restart, SCI), relaxed densities and
 UBE, through the rest of the molecular surface (``be2puffin`` with
-QM/MM, autogen and graphgen, ECPs, the scanner, FCIDUMP), and through
-periodic kBE2 on polyacetylene, in phases; each prints one line, and any
+QM/MM, autogen and graphgen, ECPs, the scanner, FCIDUMP), through
+periodic kBE2 on polyacetylene, and through octane on fragment meshes,
+in phases; each prints one line, and any
 failure raises (non-zero exit, no ``ok`` line):
 
 0. the device: CUDA name, and ``nvidia-smi`` name and power limit;
@@ -125,7 +126,21 @@ failure raises (non-zero exit, no ``ok`` line):
     implementation's; the walls (build, integrals, KRHF, one ``get_jk`` on
     the card, the construction split into localization, Schmidt,
     ``emb_eri`` and fragment SCF, each ``optimize``).  kBE's ERIs come from
-    its own GDF, so the screened transform is not on its path.
+    its own GDF, so the screened transform is not on its path;
+20. the fragment mesh (``quemb_tpu_torch/parallel/mesh.py``): octane
+    BE2 on the f64 route at CCSD tolerance 1e-9, one ``be_func(...,
+    eeval=True, return_vec=True)`` at phase 5's seeded potential with no
+    mesh and under three meshes: every visible card
+    (``make_fragment_mesh()``), two shards on ``cuda:0``, and
+    ``(cuda:0, cpu)``, a deliberate check that no operation meets tensors
+    of two shards (not a fallback: a one-card machine has no other second
+    device); the error norm, the error vector, E_corr and every
+    fragment's ``ebe`` within 1e-10 of no mesh, the devices the
+    fragments were solved on, and the wall of one evaluation under each
+    (median of 3); then ``optimize(solver="CCSD")`` with no mesh and
+    under two shards on ``cuda:0``: E_tot within 1e-8 Ha of each other
+    and 1e-6 Ha of the reference's -310.3347211309688, with the walls;
+    then ``entry.dryrun_multichip(2)`` and ``entry.entry()`` once.
 
 No phase from 10 on reaches the kernel (their launch counts are printed
 and are 0).  The last lines are the kernel report (JSON), the card's name and power
@@ -1408,6 +1423,120 @@ def polyacetylene_kbe(sd, card):
     return launches
 
 
+#: phase 20: sharded against unsharded, one evaluation (Ha, and on the
+#: error vector); matched E_tot under two shards against no mesh (Ha,
+#: ``tests/test_mesh.py:62``'s bar)
+MESH_TOL = 1e-10
+MESH_MATCHED_TOL = 1e-8
+MESH_WALLS = 3  # timed evaluations per mesh; the median is reported
+
+
+def fragment_mesh(qt, sd, mf, fobj, card):
+    """Phase 20: octane BE2 sharded over fragment meshes against no mesh,
+    ``optimize`` under two shards, and the entry points."""
+    from quemb_tpu_torch.entry import dryrun_multichip, entry
+    from quemb_tpu_torch.parallel.mesh import make_fragment_mesh, set_mesh
+    from quemb_tpu_torch.solvers.dispatch import be_func
+
+    cuda = torch.device("cuda")
+    t_phase = time.perf_counter()
+    sd.LAUNCHES = 0
+    be, init_s = wall(lambda: qt.BE(mf, fobj, device=cuda))
+    pot = np.random.default_rng(0).standard_normal(len(be.pot)) * 1e-3
+
+    def evaluate():
+        norm, vec, (ecorr, _) = be_func(pot, be.fragments, be.Nocc, "CCSD",
+                                        eeval=True, return_vec=True)
+        return dict(norm=float(norm), vec=np.array(vec), ecorr=float(ecorr),
+                    ebe=np.array([fr.ebe for fr in be.fragments]),
+                    devices=sorted({str(fr.rdm1__.device)
+                                    for fr in be.fragments}))
+
+    meshes = {
+        "none": None,
+        "every_card": make_fragment_mesh(),
+        "two_on_cuda0": make_fragment_mesh(["cuda:0", "cuda:0"]),
+        # the check that shards never meet, on a one-card machine
+        "cuda0_and_cpu": make_fragment_mesh(["cuda:0", "cpu"]),
+    }
+    runs = {}
+    for name, mesh in meshes.items():
+        set_mesh(mesh)
+        try:
+            # the first evaluation under a mesh builds its chunks' stacks
+            first, first_s = wall(evaluate)
+            walls = [wall(evaluate)[1] for _ in range(MESH_WALLS)]
+        finally:
+            set_mesh(None)
+        runs[name] = dict(first, first_eval_s=first_s,
+                          eval_s=float(np.median(walls)), eval_walls_s=walls)
+    ref = runs["none"]
+    devs = {name: dict(
+        norm=abs(r["norm"] - ref["norm"]),
+        vec=float(np.abs(r["vec"] - ref["vec"]).max()),
+        ecorr=abs(r["ecorr"] - ref["ecorr"]),
+        ebe=float(np.abs(r["ebe"] - ref["ebe"]).max()),
+    ) for name, r in runs.items() if name != "none"}
+    del be
+    etot = {}
+    opt_s = {}
+    for name in ("none", "two_on_cuda0"):
+        be = qt.BE(mf, fobj, device=cuda)
+        set_mesh(meshes[name])
+        try:
+            _, opt_s[name] = wall(lambda: be.optimize(solver="CCSD"))
+        finally:
+            set_mesh(None)
+        etot[name] = be.ebe_tot
+        del be
+    dry, dry_s = wall(lambda: dryrun_multichip(2))
+    step, args = entry()
+    (t1, t2, e_el, rdm1, delta), entry_s = wall(lambda: step(*args))
+    entry_ok = bool(torch.isfinite(e_el).all() and torch.isfinite(t2).all()
+                    and float(delta.max()) < 1e-8)
+    launches = sd.LAUNCHES
+    phase(20, phase_s=time.perf_counter() - t_phase, n_frag=fobj.n_frag,
+          ccsd_conv_tol=os.environ["QUEMB_TPU_CCSD_CONV_TOL"],
+          init_s=init_s,
+          devices={k: r["devices"] for k, r in runs.items()},
+          n_devices={k: len(r["devices"]) for k, r in runs.items()},
+          eval_s={k: r["eval_s"] for k, r in runs.items()},
+          eval_walls_s={k: r["eval_walls_s"] for k, r in runs.items()},
+          first_eval_s={k: r["first_eval_s"] for k, r in runs.items()},
+          error_norm=ref["norm"], ecorr=ref["ecorr"],
+          dev_from_no_mesh=devs, tol=MESH_TOL,
+          cpu_shard="deliberate check that shards never meet; not a"
+                    " fallback",
+          optimize_etot=etot, optimize_s=opt_s,
+          optimize_two_shards_minus_none=etot["two_on_cuda0"]
+          - etot["none"],
+          optimize_etot_dev=etot["two_on_cuda0"] - ETOT_MATCHED_REF,
+          dryrun_multichip=dict(dry, seconds=dry_s),
+          entry_e_el=e_el.cpu().tolist(), entry_s=entry_s,
+          cuda_device_count=torch.cuda.device_count(),
+          kernel_launches=launches, card=card)
+    for name, d in devs.items():
+        if not all(np.isfinite(v) and v < MESH_TOL for v in d.values()):
+            raise AssertionError(f"mesh {name} differs from no mesh: {d}")
+    want = {"every_card": {f"cuda:{k}"
+                           for k in range(torch.cuda.device_count())},
+            "two_on_cuda0": {"cuda:0"},
+            "cuda0_and_cpu": {"cuda:0", "cpu"}}
+    for name, devices in want.items():
+        if set(runs[name]["devices"]) != devices:
+            raise AssertionError(
+                f"mesh {name} solved on {runs[name]['devices']}")
+    if not (abs(etot["two_on_cuda0"] - etot["none"]) < MESH_MATCHED_TOL
+            and abs(etot["two_on_cuda0"] - ETOT_MATCHED_REF)
+            < MATCHED_TOL):
+        raise AssertionError(f"optimize under two shards: {etot}")
+    if not (dry["devices"] == ["cuda:0"] and np.isfinite(dry["ecorr"])):
+        raise AssertionError(f"dryrun_multichip(2): {dry}")
+    if not entry_ok:
+        raise AssertionError("entry(): non-finite or unconverged step")
+    return launches
+
+
 def main():
     # ---- 0. device
     if not torch.cuda.is_available():
@@ -1664,6 +1793,10 @@ def main():
     torch.cuda.empty_cache()
     with _env(QUEMB_TPU_CCSD_CONV_TOL="1e-9"):
         later["polyacetylene_kbe"] = polyacetylene_kbe(sd, card)
+
+    # ---- 20. the fragment mesh: octane sharded against unsharded
+    with _env(QUEMB_TPU_CCSD_CONV_TOL="1e-9"):
+        later["fragment_mesh"] = fragment_mesh(qt, sd, mf, fobj, card)
 
     main = timed["octane_frag0"]
     print(json.dumps({"kernels": [{

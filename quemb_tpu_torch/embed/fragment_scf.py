@@ -153,3 +153,11 @@ def rhf_orthonormal(h, eri, nocc: int, dm0):
     e, C = _eigh_deflated(F)
     e_el = 0.5 * ((h + F) * dm).sum((-2, -1))
     return e, C, e_el, it
+
+
+def rhf_orthonormal_batched(h_b, eri_b, nocc: int, dm0_b):
+    """The JAX package's name for the bucket SCF, which it vmaps over
+    :func:`rhf_orthonormal`; here :func:`rhf_orthonormal` is batched
+    already.  Returns (mo_energy [nf, n], mo_coeff [nf, n, n], e_el [nf],
+    n_iter [nf])."""
+    return rhf_orthonormal(h_b, eri_b, nocc, dm0_b)

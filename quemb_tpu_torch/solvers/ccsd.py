@@ -36,6 +36,7 @@ import warnings
 import torch
 
 from quemb_tpu_torch.ops.eri_transform import batched_mo_eri
+from quemb_tpu_torch.parallel.mesh import map_batches
 from quemb_tpu_torch.solvers.ccsd_mat import ccsd_update_mat, fused_blocks
 from quemb_tpu_torch.solvers.rccsd_mat import _p
 
@@ -453,16 +454,25 @@ def ccsd_so_large(eri_mo, moe, nsocc: int, max_cycle: int = 150):
     return t1_sp, t2_sp, int(it[0]), float(delta[0])
 
 
-def ccsd_so_batched(eri_mo_b, moe_b, nsocc: int):
-    """Batched spin-orbital CCSD over a bucket (gather-free spin-block
-    build -> fused-matrix DIIS iteration).  Returns spatial (t1_b, t2_b,
-    it, delta)."""
+def _ccsd_so_batched(eri_mo_b, moe_b, nsocc: int):
+    """Batched spin-orbital CCSD over a bucket on its device (gather-free
+    spin-block build -> fused-matrix DIIS iteration).  Returns spatial
+    (t1_b, t2_b, it, delta)."""
     nmo = eri_mo_b.shape[1]
     t1f, t2f, it, delta = _ccsd_from_mo_batched(
         eri_mo_b, moe_b, nsocc, f32_only=_f32_only()
     )
     t1_b, t2_b = _split_spatial(t1f, t2f, nsocc, nmo)
     return t1_b, t2_b, it, delta
+
+
+def ccsd_so_batched(eri_mo_b, moe_b, nsocc: int):
+    """:func:`_ccsd_so_batched` with the fragment axis sharded over the
+    active mesh (:mod:`quemb_tpu_torch.parallel.mesh`); the results are
+    gathered on the device of ``eri_mo_b``.  Returns spatial (t1_b, t2_b,
+    it, delta)."""
+    return map_batches(lambda e, m: _ccsd_so_batched(e, m, nsocc),
+                       eri_mo_b, moe_b)
 
 
 def solve_ccsd_so(eri_mo, moe, nsocc: int, conv_tol=1e-9, max_cycle=150):

@@ -13,8 +13,16 @@ solver (closed-shell CCSD, or the spin-orbital kernel under
 fragment by fragment on the device; FCI, SCI or DMRG on the host) -> RDMs
 -> embedding-basis 1-RDM -> cumulant or non-cumulant energy rows.  The JAX
 module keeps a fused and a staged form of this pass because one is a
-single XLA program; eager torch has one form.  The fragment axis is not
-sharded over devices.
+single XLA program; eager torch has one form.
+
+Under a fragment mesh (:mod:`quemb_tpu_torch.parallel.mesh`),
+:func:`_solve_bucket` splits a batched bucket's fragments into
+contiguous chunks, one per shard, and runs :func:`_solve_bucket_batched`
+on each chunk on its shard's device, one thread per shard; the chunks'
+energy sums are added in shard order.  A bucket on the large-fragment
+path is not sharded.  The per-fragment tensors (``rdm1__``, ``rdm2__``,
+``t1``, ``t2``) stay on their shard's device; the host arrays
+(``_rdm1``, ``mo_coeffs``, ``ebe``) are what the error vector reads.
 """
 
 from __future__ import annotations
@@ -29,8 +37,10 @@ from quemb_tpu_torch.embed.fragment import Fragment
 from quemb_tpu_torch.embed.fragment_scf import rhf_orthonormal
 from quemb_tpu_torch.ops.eri_transform import \
     batched_mo_eri as _batched_mo_eri
-from quemb_tpu_torch.solvers.ccsd import _default_conv_tol, _f32_only, \
-    ccsd_so_batched, ccsd_so_large
+from quemb_tpu_torch.parallel.mesh import get_mesh, run_on_shards, \
+    shard_ranges
+from quemb_tpu_torch.solvers.ccsd import _ccsd_so_batched, \
+    _default_conv_tol, _f32_only, ccsd_so_large
 from quemb_tpu_torch.solvers.ccsd_relaxed import ccsd_relaxed_rdms
 from quemb_tpu_torch.solvers.dmrg import solve_dmrg
 from quemb_tpu_torch.solvers.fci import remove_mf_part, solve_fci
@@ -174,29 +184,33 @@ def _pad_frag_op(a, p_occ: int, p_vir: int, diag_occ: float = 0.0,
     return out
 
 
-def _bucket_dev(frs: list[Fragment], pads: tuple[tuple[int, int], ...]):
-    """Stacked, padded device operands of a merged bucket.
+def _bucket_dev(frs: list[Fragment], pads: tuple[tuple[int, int], ...],
+                device: torch.device):
+    """Stacked, padded operands of a merged bucket (or of a shard's chunk
+    of one) on ``device``.
 
     fock/eri/dm0/h1/veff0/veff are fixed after BE construction; only heff
     changes between objective evaluations, so the stacks are built once
     and kept on the bucket's first fragment, keyed by the fragments'
-    tokens and pads.  Replacing ``fr.eri`` invalidates the entry.
+    tokens, the pads and the device: a chunk's ERIs are copied to its
+    shard's device once, not at every evaluation.  Replacing ``fr.eri``
+    invalidates the entry.
     """
-    key = tuple(fr._cache_token for fr in frs) + pads
+    key = tuple(fr._cache_token for fr in frs) + pads + (str(device),)
     hit = getattr(frs[0], "_bucket_cache", None)
     if hit is not None and hit["key"] == key and hit["eri"] is frs[0].eri:
         return hit["dev"]
-    dev = frs[0].eri.device
 
     def stack(name, **diag):
         return torch.as_tensor(np.stack([
             _pad_frag_op(getattr(fr, name), po, pv, **diag)
             for fr, (po, pv) in zip(frs, pads)
-        ]), device=dev)
+        ]), device=device)
 
     out = dict(
         eri=torch.stack([
-            _pad_frag_op(fr.eri, po, pv) for fr, (po, pv) in zip(frs, pads)
+            _pad_frag_op(fr.eri.to(device), po, pv)
+            for fr, (po, pv) in zip(frs, pads)
         ]),
         fock=stack("fock", diag_occ=-_PAD_SHIFT, diag_vir=_PAD_SHIFT),
         dm0=stack("dm0", diag_occ=2.0),
@@ -259,7 +273,10 @@ def _takes_large_path(nemb: int, device: torch.device, solver: str,
 def _solve_bucket(frs, solver, eeval, use_cumulant, relax_density,
                   pads=None):
     """One bucket of :func:`be_func`, through the large-fragment or the
-    batched path (:func:`_takes_large_path`); returns what they return."""
+    batched path (:func:`_takes_large_path`); returns what they return.
+    Under a fragment mesh a batched bucket is split into one chunk per
+    shard, each solved on its shard's device on a thread of its own, and
+    the chunks' ``[e1, e2, ec]`` are added in shard order."""
     _check_solver(solver)
     if pads is None:
         pads = ((0, 0),) * len(frs)
@@ -267,8 +284,19 @@ def _solve_bucket(frs, solver, eeval, use_cumulant, relax_density,
     if _takes_large_path(nemb, frs[0].eri.device, solver, relax_density):
         # merge classes wider than _NEMB_BATCHED_MAX hold no pads
         return _solve_bucket_large(frs, solver, eeval, use_cumulant)
-    return _solve_bucket_batched(frs, solver, eeval, use_cumulant,
-                                 relax_density, pads=pads)
+    mesh = get_mesh()
+    if mesh is None:
+        return _solve_bucket_batched(frs, solver, eeval, use_cumulant,
+                                     relax_density, pads=pads)
+    shards = shard_ranges(len(frs), mesh)
+    rets = run_on_shards(
+        lambda r, device: _solve_bucket_batched(
+            frs[r.start:r.stop], solver, eeval, use_cumulant, relax_density,
+            pads=pads[r.start:r.stop], device=device,
+        ),
+        [r for r, _ in shards], [d for _, d in shards],
+    )
+    return [sum(e) for e in zip(*rets)] if eeval else None
 
 
 def _solve_bucket_large(frs, solver, eeval, use_cumulant):
@@ -346,7 +374,7 @@ def _solve_bucket_large(frs, solver, eeval, use_cumulant):
 
 
 def _solve_bucket_batched(frs, solver, eeval, use_cumulant, relax_density,
-                          pads=None):
+                          pads=None, device=None):
     """Solve a bucket of same-shaped fragments as batched device work.
 
     ``pads`` (from the be_func bucket merge) zero-pads each fragment's
@@ -359,7 +387,8 @@ def _solve_bucket_batched(frs, solver, eeval, use_cumulant, relax_density,
     device; ``"FCI"``, ``"SCI"`` and ``"DMRG"`` with the SCF and the MO
     transform on the device and the CI on the host; cumulant or
     non-cumulant energies.  Any width runs here (the routing of wide
-    buckets is :func:`_solve_bucket`'s).  Returns the bucket's summed
+    buckets is :func:`_solve_bucket`'s).  The bucket runs on ``device``
+    (default: the device of its ERIs).  Returns the bucket's summed
     ``[e1, e2, ec]`` with ``eeval``, else None; per-fragment results are
     written back onto the fragments.
     """
@@ -373,7 +402,8 @@ def _solve_bucket_batched(frs, solver, eeval, use_cumulant, relax_density,
         )
     nsocc = frs[0].nsocc + pads[0][0]
     nemb = frs[0].nao + pads[0][0] + pads[0][1]
-    dev = _bucket_dev(frs, pads)
+    dev = _bucket_dev(frs, pads,
+                      frs[0].eri.device if device is None else device)
     device = dev["fock"].device
     heff_b = torch.as_tensor(np.stack([
         _pad_frag_op(fr.heff, po, pv) for fr, (po, pv) in zip(frs, pads)
@@ -405,7 +435,7 @@ def _solve_bucket_batched(frs, solver, eeval, use_cumulant, relax_density,
                     " spin-orbital kernel (QUEMB_TPU_CCSD_SPINORB); set"
                     " QUEMB_TPU_MERGE_BUCKETS=0"
                 )
-            amplitudes = ccsd_so_batched
+            amplitudes = _ccsd_so_batched
         else:
             def amplitudes(eri_mo_b, moe_b, nsocc):
                 return _rccsd_from_mo_batched(eri_mo_b, moe_b, nsocc,

@@ -1,8 +1,8 @@
 """Closed-shell CCSD amplitude iteration, batched over fragments.
 
 JAX counterpart: ``quemb_tpu/solvers/rccsd.py`` (``_rdiis_stage``,
-``_rccsd_iterate``, ``_rccsd_from_mo_batched``, ``rccsd_large``,
-``solve_rccsd``).  The DIIS-accelerated loop drives
+``_rccsd_iterate``, ``_rccsd_from_mo_batched``, ``rccsd_batched``,
+``rccsd_large``, ``solve_rccsd``).  The DIIS-accelerated loop drives
 :func:`quemb_tpu_torch.solvers.rccsd_mat.rccsd_update_mat` over a bucket
 held as a leading batch dimension (one fragment for ``rccsd_large``).  Where the JAX module
 vmaps a ``lax.while_loop``, this one runs a Python loop until every lane
@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from quemb_tpu_torch.parallel.mesh import map_batches
 from quemb_tpu_torch.solvers.ccsd import _default_conv_tol, _diis_loop, \
     _f32_only, _f32_tol
 from quemb_tpu_torch.solvers.rccsd_mat import rccsd_fused_blocks, \
@@ -83,6 +84,20 @@ def _rccsd_from_mo_batched(eri_mo_b, moe_b, nsocc: int,
     fb = rccsd_fused_blocks(eri_mo_b, nsocc)
     return _rccsd_iterate(moe_b[:, :nsocc], moe_b[:, nsocc:], fb,
                           max_cycle=max_cycle)
+
+
+def rccsd_batched(eri_mo_b, moe_b, nsocc: int):
+    """Batched closed-shell CCSD over a bucket, the fragment axis sharded
+    over the active mesh (:mod:`quemb_tpu_torch.parallel.mesh`): eri_mo_b
+    [nf, nmo]^4 chemist and moe_b [nf, nmo], f64.  The precision follows
+    ``QUEMB_TPU_CCSD_F32_ONLY``.  Returns spatial (t1_b, t2_b, it, delta)
+    on the device of ``eri_mo_b``."""
+    f32_only = _f32_only()
+    return map_batches(
+        lambda e, m: _rccsd_from_mo_batched(e, m, nsocc, f32_only=f32_only),
+        torch.as_tensor(eri_mo_b, dtype=torch.float64),
+        torch.as_tensor(moe_b, dtype=torch.float64),
+    )
 
 
 def rccsd_large(eri_mo, moe, nsocc: int):

@@ -12,6 +12,7 @@ MODULES = (
     "quemb_tpu_torch.api",
     "quemb_tpu_torch.config",
     "quemb_tpu_torch.embed.energy",
+    "quemb_tpu_torch.entry",
     "quemb_tpu_torch.chem.ecp",
     "quemb_tpu_torch.chem.integrals",
     "quemb_tpu_torch.chem.mole",
@@ -44,6 +45,7 @@ MODULES = (
     "quemb_tpu_torch.ops.eri_transform",
     "quemb_tpu_torch.ops.screened_df",
     "quemb_tpu_torch.ops.sparse_df",
+    "quemb_tpu_torch.parallel.mesh",
     "quemb_tpu_torch.scanner",
     "quemb_tpu_torch.solvers.ccsd",
     "quemb_tpu_torch.solvers.ccsd_mat",
@@ -95,7 +97,7 @@ def test_every_module_is_listed_and_names_no_jax():
               "utils.profiling", "utils.scratch", "embed.energy", "kbe",
               "kbe.cell", "kbe.df", "kbe.exact4c", "kbe.fragment", "kbe.lo",
               "kbe.pbc_int", "kbe.pbe", "kbe.pfrag", "kbe.scf",
-              "kbe.wannier"):
+              "kbe.wannier", "parallel.mesh", "entry"):
         assert f"quemb_tpu_torch.{m}" in MODULES
     bad = re.compile(
         r"^\s*(import|from)\s+(jax|quemb_tpu)(\.|\s|$)", re.MULTILINE

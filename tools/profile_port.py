@@ -465,7 +465,7 @@ def profile_objective(mf, fobj, card, trace):
     (pairs,) = D.form_merge_classes(be.fragments)
     frs = [fr for fr, _ in pairs]
     pads = tuple(p for _, p in pairs)
-    dev = D._bucket_dev(frs, pads)
+    dev = D._bucket_dev(frs, pads, frs[0].eri.device)
     heff = torch.as_tensor(np.stack([
         D._pad_frag_op(fr.heff, *p) for fr, p in pairs
     ]), device=dev["fock"].device)

@@ -346,6 +346,14 @@ def phase(n, **facts):
     print(json.dumps({"phase": n, **facts}), flush=True)
 
 
+def kernel_launches() -> int:
+    """Screened-DF kernel launches so far in this process (the tracer's
+    ``screened_df.launches`` counter)."""
+    from quemb_tpu_torch.utils.profiling import total
+
+    return total("screened_df.launches")
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -601,9 +609,9 @@ def chain_transforms(sd, mol, mf, fobj, flush, card):
             per_fragment.append(t)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
-    sd.LAUNCHES = 0
+    launches0 = kernel_launches()
     eris32, f32_s = wall(lambda: sdf32.transform_all(TAs))
-    launches = sd.LAUNCHES
+    launches = kernel_launches() - launches0
     if launches != len(TAs):
         raise AssertionError(
             f"{launches} kernel launches for {len(TAs)} fragments"
@@ -678,11 +686,11 @@ def chain_energies(qt, sd, mf, fobj, card):
             del be
             torch.cuda.empty_cache()
         os.environ["QUEMB_TPU_CCSD_F32_ONLY"] = "1"
-        sd.LAUNCHES = 0
+        launches0 = kernel_launches()
         be32, init_s = wall(lambda: qt.BE(
             mf, fobj, int_transform="sparse-DF", auxbasis=C40_AUX,
             device=cuda))
-        launches = sd.LAUNCHES
+        launches = kernel_launches() - launches0
         _, solve_s = wall(lambda: be32.oneshot("CCSD"))
     finally:
         rccsd._rdiis_stage = rdiis_inner
@@ -731,7 +739,7 @@ def octane_frozen_core(qt, sd, mf, fobj, card):
     cuda = torch.device("cuda")
     tol_before = os.environ.get("QUEMB_TPU_CCSD_CONV_TOL")
     os.environ["QUEMB_TPU_CCSD_CONV_TOL"] = "1e-6"  # as in phase 6
-    sd.LAUNCHES = 0
+    launches0 = kernel_launches()
     try:
         be, init_s = wall(lambda: qt.BE(mf, fobj, device=cuda))
         hf_in_hf = mf.e_tot - be.ebe_hf
@@ -755,7 +763,7 @@ def octane_frozen_core(qt, sd, mf, fobj, card):
         be.save(path)
         be2, restart_s = wall(lambda: qt.BE.from_restart_file(
             mf, fobj, path, device=cuda))
-    launches = sd.LAUNCHES
+    launches = kernel_launches() - launches0
     phase(10, n_frag=fobj.n_frag, ncore=be.ncore, e_core=be.E_core,
           hf_in_hf=hf_in_hf, init_s=init_s, jacobian_s=jac_s,
           jacobian_shape=list(J.shape), optimize_s=opt_s, etot=etot,
@@ -813,7 +821,7 @@ def hexene_iao(qt, sd, card):
         return large_inner(frs, *args, **kwargs)
 
     dispatch._solve_bucket_large = counted_large
-    sd.LAUNCHES = 0
+    launches0 = kernel_launches()
     try:
         be, init_s = wall(lambda: qt.BE(mf, fobj, lo_method="IAO",
                                         device=cuda))
@@ -848,7 +856,7 @@ def hexene_iao(qt, sd, card):
             del os.environ["QUEMB_TPU_CCSD_CONV_TOL"]
         else:
             os.environ["QUEMB_TPU_CCSD_CONV_TOL"] = tol_before
-    launches = sd.LAUNCHES
+    launches = kernel_launches() - launches0
     large_vs_batched = paths["large"]["ecorr"] - paths["batched"]["ecorr"]
     phase(11, nao=mol.nao, e_hf=e_hf, e_hf_dev=e_hf - HEXENE_EHF_REF,
           scf_cycles=mf.cycles, scf_s=scf_s, init_s=init_s,
@@ -890,13 +898,13 @@ def h8_sci(qt, sd, card):
     mf.kernel()
     fobj = qt.fragmentate(mol, n_BE=1, frag_type="chemgen",
                           print_frags=False)
-    sd.LAUNCHES = 0
+    launches0 = kernel_launches()
     out = {}
     for solver in ("FCI", "SCI"):
         be = qt.BE(mf, fobj, device=cuda)
         _, t = wall(lambda: be.optimize(solver=solver, only_chem=True))
         out[solver] = dict(etot=be.ebe_tot, s=t)
-    launches = sd.LAUNCHES
+    launches = kernel_launches() - launches0
     diff = out["SCI"]["etot"] - out["FCI"]["etot"]
     phase(12, n_frag=fobj.n_frag, fci=out["FCI"], sci=out["SCI"],
           sci_minus_fci=diff, kernel_launches=launches, card=card)
@@ -949,7 +957,7 @@ def octane_relaxed(qt, sd, mf, fobj, etot_phase6, card):
 
     dispatch.ccsd_relaxed_rdms, beopt.be_func = checked_relaxed, \
         counted_be_func
-    sd.LAUNCHES = 0
+    launches0 = kernel_launches()
     try:
         with _env(QUEMB_TPU_CCSD_CONV_TOL="1e-6"):  # as in phase 6
             be = qt.BE(mf, fobj, device=cuda)
@@ -959,7 +967,7 @@ def octane_relaxed(qt, sd, mf, fobj, etot_phase6, card):
         dispatch.ccsd_relaxed_rdms, beopt.be_func = relaxed_inner, \
             be_func_inner
     etot = be.ebe_tot
-    launches = {"octane_relaxed": sd.LAUNCHES}
+    launches = {"octane_relaxed": kernel_launches() - launches0}
     with _env(QUEMB_TPU_CCSD_CONV_TOL="1e-6"):
         be = qt.BE(mf, fobj, device=cuda)
         be.optimize(solver="CCSD", only_chem=True)
@@ -971,10 +979,11 @@ def octane_relaxed(qt, sd, mf, fobj, etot_phase6, card):
                 # the JAX package needs the merge switch off beside it;
                 # the port plans no merged buckets under the switch
                 QUEMB_TPU_CCSD_SPINORB="1", QUEMB_TPU_MERGE_BUCKETS="0"))):
-            sd.LAUNCHES = 0
+            launches0 = kernel_launches()
             with _env(**spinorb):
                 _, t = wall(lambda: be.oneshot("CCSD"))
-            launches[f"octane_{name}_oneshot"] = sd.LAUNCHES
+            launches[f"octane_{name}_oneshot"] = (kernel_launches()
+                                                  - launches0)
             oneshots[name] = dict(ecorr=be.ebe_tot - be.ebe_hf, s=t)
     so_diff = oneshots["spin_orbital"]["ecorr"] - \
         oneshots["closed_shell"]["ecorr"]
@@ -1009,7 +1018,7 @@ def hexene_anion_ube(qt, sd, card):
     from quemb_tpu_torch.ube import UBE
 
     cuda = torch.device("cuda")
-    sd.LAUNCHES = 0
+    launches0 = kernel_launches()
     mol = Mole.from_xyz_file(HEXENE_XYZ, basis="sto-3g", charge=-1, spin=1)
     mf = UHF(mol, conv_tol=1e-10, device=cuda)
     e_hf, scf_s = wall(mf.kernel)
@@ -1040,7 +1049,7 @@ def hexene_anion_ube(qt, sd, card):
                 ecorr_recorded_dev=ecorr - HEXENE_ANION_UBE_RECORDED[n_BE])
     finally:
         uccsd.ccsd_update_mat = update_inner
-    launches = sd.LAUNCHES
+    launches = kernel_launches() - launches0
     phase(14, nao=mol.nao, nelec=list(mf.nelec), e_hf=e_hf,
           scf_cycles=mf.cycles, scf_s=scf_s, ube=out,
           kernel_launches=launches, card=card)
@@ -1085,7 +1094,7 @@ def qmmm_be2puffin(qt, sd, ube_be1_ecorr, card):
 
     cuda = torch.device("cuda")
     t_phase = time.perf_counter()
-    sd.LAUNCHES = 0
+    launches0 = kernel_launches()
     with _env(QUEMB_TPU_CCSD_CONV_TOL="1e-9"), _captured_be(qt) as made:
         ecorr, qmmm_s = wall(lambda: be2puffin(
             XYZ, "sto-3g", n_BE=2, frozen_core=False,
@@ -1096,7 +1105,7 @@ def qmmm_be2puffin(qt, sd, ube_be1_ecorr, card):
             HEXENE_XYZ, "sto-3g", charge=-1, spin=1, unrestricted=True,
             n_BE=1, device=cuda))
     hf_in_hf = be.hf_etot - be.ebe_hf
-    launches = sd.LAUNCHES
+    launches = kernel_launches() - launches0
     phase(15, phase_s=time.perf_counter() - t_phase,
           e_hf=be.hf_etot, scf_cycles=be.mf.cycles, hf_in_hf=hf_in_hf,
           ecorr=ecorr, ecorr_dev=ecorr - OCTANE_QMMM_ECORR_REF,
@@ -1118,7 +1127,7 @@ def fragmenters(qt, sd, mf, card):
     phase 6), and one-shot from graphgen."""
     cuda = torch.device("cuda")
     t_phase = time.perf_counter()
-    sd.LAUNCHES = 0
+    launches0 = kernel_launches()
     mol = mf.mol
     with _env(QUEMB_TPU_CCSD_CONV_TOL="1e-6"):
         fobj_a = qt.fragmentate(mol, n_BE=2, frag_type="autogen",
@@ -1131,7 +1140,7 @@ def fragmenters(qt, sd, mf, card):
         be, ginit_s = wall(lambda: qt.BE(mf, fobj_g, device=cuda))
         _, gshot_s = wall(lambda: be.oneshot("CCSD"))
         ecorr_g, hf_g = be.ebe_tot - be.ebe_hf, be.hf_etot - be.ebe_hf
-    launches = sd.LAUNCHES
+    launches = kernel_launches() - launches0
     phase(16, phase_s=time.perf_counter() - t_phase,
           autogen_n_frag=fobj_a.n_frag, autogen_hf_in_hf=hf_a,
           autogen_init_s=init_s, autogen_optimize_s=opt_s,
@@ -1163,7 +1172,7 @@ def propane_ecp(qt, sd, card):
 
     cuda = torch.device("cuda")
     t_phase = time.perf_counter()
-    sd.LAUNCHES = 0
+    launches0 = kernel_launches()
     mol = Mole(atom=PROPANE, basis="sto-3g", ecp=PSEUDO_C)
     t0 = time.perf_counter()
     ecp_matrix(mol)
@@ -1181,7 +1190,7 @@ def propane_ecp(qt, sd, card):
                 n_frag=fobj.n_frag, hf_in_hf=be.hf_etot - be.ebe_hf,
                 ecorr=ecorr, ecorr_dev=ecorr - e_ref, init_s=init_s,
                 oneshot_s=shot_s)
-    launches = sd.LAUNCHES
+    launches = kernel_launches() - launches0
     phase(17, phase_s=time.perf_counter() - t_phase,
           nao=mol.nao, nelectron=mol.nelectron, ecp_matrix_host_s=ecp_s,
           e_hf=e_hf, e_hf_dev=e_hf - PROPANE_ECP_EHF_REF, scf_s=scf_s,
@@ -1221,7 +1230,7 @@ def scanner_io(qt, sd, be_octane, card):
 
     cuda = torch.device("cuda")
     t_phase = time.perf_counter()
-    sd.LAUNCHES = 0
+    launches0 = kernel_launches()
     with _env(QUEMB_TPU_CCSD_CONV_TOL="1e-9"):
         h6 = Mole(atom="; ".join(f"H 0 0 {i}.0" for i in range(6)),
                   basis="sto-3g")
@@ -1273,7 +1282,7 @@ def scanner_io(qt, sd, be_octane, card):
                                   max_abs_err_bar=FCIDUMP_DROP
                                   + 1e-14 * scale,
                                   fragment_hf_energy_err=e_err)
-    launches = sd.LAUNCHES
+    launches = kernel_launches() - launches0
     phase(18, phase_s=time.perf_counter() - t_phase,
           h6_etot=e_h6, h6_dev=e_h6 - H6_SCANNER_REF, h6_s=h6_s,
           probe_atom=PROBE_ATOM, probe_step=PROBE_STEP,
@@ -1333,7 +1342,7 @@ def polyacetylene_kbe(sd, card):
 
     cuda = torch.device("cuda")
     t_phase = time.perf_counter()
-    sd.LAUNCHES = 0
+    launches0 = kernel_launches()
     cell = kbe.Cell(atom=POLYACETYLENE, a=POLY_LATTICE, basis="sto-3g")
     kpts = cell.make_kpts(POLY_KMESH)
     gdf, build_s = wall(lambda: kbe.KGDF(cell, kpts, omega=0.6,
@@ -1389,7 +1398,7 @@ def polyacetylene_kbe(sd, card):
             **{f"{k}_s": sum(v) for k, v in split.items()},
             optimize_s=opt_s, evaluations=len(evals))
         del be
-    launches = sd.LAUNCHES
+    launches = kernel_launches() - launches0
     for frag_type, r in out.items():
         r.update(hf_in_hf_jax=POLY_HF_IN_HF_JAX[frag_type],
                  e_core_dev=r["e_core"] - POLY_ECORE_REF,
@@ -1440,7 +1449,7 @@ def fragment_mesh(qt, sd, mf, fobj, card):
 
     cuda = torch.device("cuda")
     t_phase = time.perf_counter()
-    sd.LAUNCHES = 0
+    launches0 = kernel_launches()
     be, init_s = wall(lambda: qt.BE(mf, fobj, device=cuda))
     pot = np.random.default_rng(0).standard_normal(len(be.pot)) * 1e-3
 
@@ -1494,7 +1503,7 @@ def fragment_mesh(qt, sd, mf, fobj, card):
     (t1, t2, e_el, rdm1, delta), entry_s = wall(lambda: step(*args))
     entry_ok = bool(torch.isfinite(e_el).all() and torch.isfinite(t2).all()
                     and float(delta.max()) < 1e-8)
-    launches = sd.LAUNCHES
+    launches = kernel_launches() - launches0
     phase(20, phase_s=time.perf_counter() - t_phase, n_frag=fobj.n_frag,
           ccsd_conv_tol=os.environ["QUEMB_TPU_CCSD_CONV_TOL"],
           init_s=init_s,
@@ -1626,13 +1635,13 @@ def main():
 
     # ---- 3. main path, f32 tier: the kernel runs once per fragment
     os.environ["QUEMB_TPU_CCSD_F32_ONLY"] = "1"
-    sd.LAUNCHES = 0
+    launches0 = kernel_launches()
     t0 = time.perf_counter()
     be32 = qt.BE(mf, fobj, int_transform="sparse-DF", auxbasis="cholesky",
                  device=cuda)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    launches = sd.LAUNCHES
+    launches = kernel_launches() - launches0
     if launches != fobj.n_frag:
         raise AssertionError(
             f"{launches} kernel launches for {fobj.n_frag} fragments"
@@ -1693,7 +1702,7 @@ def main():
 
     for fr in be.fragments:  # phase 5 left its seeded potential in heff
         fr.update_heff(be.pot)
-    sd.LAUNCHES = 0
+    launches0 = kernel_launches()
     t0 = time.perf_counter()
     J0 = be.get_be_error_jacobian("HF")
     torch.cuda.synchronize()
@@ -1736,7 +1745,7 @@ def main():
           etot_dev=be.ebe_tot - ETOT_MATCHED_REF, ecorr=ecorr_m,
           ecorr_dev=ecorr_m - ECORR_MATCHED_REF,
           ccsd_conv_tol=os.environ["QUEMB_TPU_CCSD_CONV_TOL"],
-          kernel_launches=sd.LAUNCHES, card=card)
+          kernel_launches=kernel_launches() - launches0, card=card)
     if not err_norms[-1] < 1e-6:
         raise AssertionError(
             f"matching stopped at error norm {err_norms[-1]:.3e} >= 1e-6"

@@ -14,7 +14,9 @@ quasi-Newton loop) with the CCSD, MP2, FCI, SCI and DMRG solvers, the
 save/restart file, and the full-basis RDMs and energy
 (``rdm1_fullbasis``, ``compute_energy_full``).  ``initialize``,
 ``oneshot`` and ``optimize`` add their walls to
-:data:`quemb_tpu_torch.utils.helper.timer`.
+:data:`quemb_tpu_torch.utils.helper.timer`.  Each ``BE`` is one trace of
+the tracer (:mod:`quemb_tpu_torch.utils.profiling`): the ``fragmentate``
+that made its fragments, its construction and every solve on it.
 
 Device work runs on an explicit ``torch.device``: ``BE(..., device=...)``
 defaults to CUDA and raises when no card is present; the CPU is used only
@@ -26,7 +28,6 @@ from __future__ import annotations
 
 import logging
 import os
-import time
 import warnings
 from typing import Literal
 
@@ -51,6 +52,7 @@ from quemb_tpu_torch.ops.eri_transform import batched_mo_eri
 from quemb_tpu_torch.solvers.dispatch import be_func
 from quemb_tpu_torch.utils.device import resolve_device
 from quemb_tpu_torch.utils.helper import timer
+from quemb_tpu_torch.utils.profiling import current, span
 
 logger = logging.getLogger(__name__)
 
@@ -153,6 +155,7 @@ def _init_bucket(frs: list, nsocc: int, device: torch.device) -> float:
     return E_hf
 
 
+@span("fragmentate")
 def fragmentate(
     mol: Mole,
     *,
@@ -166,7 +169,9 @@ def fragmentate(
 ) -> FragPart:
     """Fragment a molecule for BE (reference molbe/fragment.py:fragmentate):
     chemgen, autogen or graphgen (``additional_args`` carries
-    :class:`ChemGenArgs` or :class:`GraphGenArgs`)."""
+    :class:`ChemGenArgs` or :class:`GraphGenArgs`).  The call is the root
+    span of a trace, which the first ``BE`` built from the result joins
+    (``trace_id``)."""
     if frag_type == "chemgen":
         result = chemgen(
             mol,
@@ -212,6 +217,7 @@ def fragmentate(
             [-len(aos) for aos in result.AO_per_frag], stable=True
         )
         result = result.reorder_frags(idx)
+    result.trace_id = current().trace
     return result
 
 
@@ -302,10 +308,27 @@ class BE:
         defaults (mbe.py:191-192): the per-MO reachability screen and
         the geometric AO-pair screen.  ``screen_eps`` (legacy single
         knob) overrides both when given.  ``device`` defaults to CUDA; a
-        mean field that was given no device runs its J/K there too."""
-        self._set_options(mf, fobj, thr_bath, int_transform, auxbasis,
-                          screen_eps, MO_coeff_epsilon, AO_coeff_epsilon,
-                          device)
+        mean field that was given no device runs its J/K there too.
+
+        Construction is the tracer's ``construct`` span, in the trace of
+        ``fobj``'s ``fragmentate`` when no other ``BE`` took it first
+        (``trace_id``)."""
+        trace = getattr(fobj, "trace_id", None)
+        fobj.trace_id = None
+        with span("construct", trace) as sp:
+            self.trace_id = sp.trace
+            with span("mean_field"):
+                self._set_options(mf, fobj, thr_bath, int_transform,
+                                  auxbasis, screen_eps, MO_coeff_epsilon,
+                                  AO_coeff_epsilon, device)
+                self._read_mean_field(mf)
+            with span("localize"):
+                self.localize(lo_method, iao_loc_method=iao_loc_method)
+            self.initialize()
+
+    def _read_mean_field(self, mf: RHF) -> None:
+        """What construction reads of the mean field, on the host, with
+        the frozen core's density and potential folded in."""
         mol = mf.mol
         self.Nocc = mol.nelectron // 2
         self.enuc = mf.energy_nuc()
@@ -330,9 +353,6 @@ class BE:
             ))
             self.hf_veff = self.hf_veff - self.core_veff
             self.hcore = self.hcore + self.core_veff
-
-        self.localize(lo_method, iao_loc_method=iao_loc_method)
-        self.initialize()
 
     def _set_options(self, mf, fobj, thr_bath, int_transform, auxbasis,
                      screen_eps, MO_coeff_epsilon, AO_coeff_epsilon,
@@ -509,14 +529,39 @@ class BE:
     # ---------------------------------------------------------- initialize
     @timer.timeit
     def initialize(self) -> None:
-        t0 = time.perf_counter()
-        fobj = self.fobj
-        for I in range(fobj.n_frag):
-            fr = Fragment.from_frag_part(fobj, I)
-            fr.sd(self.W, self.lmo_coeff, self.Nocc, thr_bath=self.thr_bath)
-            self.fragments.append(fr)
-        logger.info("init: Schmidt %.2fs", time.perf_counter() - t0)
-        t0 = time.perf_counter()
+        """Schmidt decomposition, the fragment ERIs and the fragment
+        SCFs at zero potential: the tracer's ``schmidt``, ``eri`` and
+        ``fragment_init`` spans."""
+        with span("schmidt") as sp:
+            fobj = self.fobj
+            for I in range(fobj.n_frag):
+                fr = Fragment.from_frag_part(fobj, I)
+                fr.sd(self.W, self.lmo_coeff, self.Nocc,
+                      thr_bath=self.thr_bath)
+                self.fragments.append(fr)
+        logger.info("init: Schmidt %.2fs", sp.seconds)
+        with span("eri") as sp:
+            self._fragment_eris()
+        logger.info("init: ERI transform %.2fs", sp.seconds)
+        with span("fragment_init") as sp:
+            E_hf = self._init_fragments_batched()
+        logger.info("init: fragment init %.2fs", sp.seconds)
+
+        self.ebe_hf = E_hf + self.enuc + self.E_core
+        hf_err = self.hf_etot - self.ebe_hf
+        logger.info(f"HF-in-HF error: {hf_err:.4e} Ha")
+        print(f"HF-in-HF error                 :  {hf_err:>.4e} Ha")
+        if abs(hf_err) > 1.0e-5:
+            warnings.warn("Large HF-in-HF energy error")
+
+        # matching-potential dimensions
+        couti = 0
+        for fr in self.fragments:
+            fr.udim = couti
+            couti = fr.set_udim(couti)
+
+    def _fragment_eris(self) -> None:
+        """Each fragment's ``eri`` on the device, by ``int_transform``."""
         dev = self.device
 
         TAs = [fr.TA for fr in self.fragments]
@@ -577,8 +622,9 @@ class BE:
             # one batched device computation; the ERIs stay on the device
             from quemb_tpu_torch.ops.df import cholesky_df_factor
 
-            B = cholesky_df_factor(self.mol, tol=1.0e-10,
-                                   eri=self.mf.get_eri())
+            with span("cd_factor"):
+                B = cholesky_df_factor(self.mol, tol=1.0e-10,
+                                       eri=self.mf.get_eri())
             eris = _cd_fragment_eris(torch.as_tensor(B, device=dev),
                                      [fr.TA for fr in self.fragments])
             for fr, eri in zip(self.fragments, eris):
@@ -603,24 +649,6 @@ class BE:
                     eri_b = incore_transform_batched(eri_ao, TA_b)
                     for fr, eri in zip(frs, eri_b):
                         fr.eri = eri
-        logger.info("init: ERI transform %.2fs", time.perf_counter() - t0)
-        t0 = time.perf_counter()
-
-        E_hf = self._init_fragments_batched()
-        logger.info("init: fragment init %.2fs", time.perf_counter() - t0)
-
-        self.ebe_hf = E_hf + self.enuc + self.E_core
-        hf_err = self.hf_etot - self.ebe_hf
-        logger.info(f"HF-in-HF error: {hf_err:.4e} Ha")
-        print(f"HF-in-HF error                 :  {hf_err:>.4e} Ha")
-        if abs(hf_err) > 1.0e-5:
-            warnings.warn("Large HF-in-HF energy error")
-
-        # matching-potential dimensions
-        couti = 0
-        for fr in self.fragments:
-            fr.udim = couti
-            couti = fr.set_udim(couti)
 
     def _init_fragments_batched(self) -> float:
         """Fragment Hamiltonians + Fock + SCF + HF energies, bucketed.

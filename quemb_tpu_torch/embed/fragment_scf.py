@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from quemb_tpu_torch.ops.linalg import eigh as _eigh
+from quemb_tpu_torch.utils.profiling import count
 
 DIIS_SPACE = 8
 TOL = 1e-12  # max |change| of the density between iterations
@@ -113,6 +114,8 @@ def rhf_orthonormal(h, eri, nocc: int, dm0):
 
     h, dm0: [nf, n, n]; eri: [nf, n, n, n, n].  Returns
     (mo_energy [nf, n], mo_coeff [nf, n, n], e_el [nf], n_iter [nf]).
+    Counts each loop trip (``iters``) and each flag read (``syncs``) on
+    the innermost open span of the tracer.
     """
     nf, n = h.shape[0], h.shape[-1]
     dt, dev = h.dtype, h.device
@@ -124,8 +127,10 @@ def rhf_orthonormal(h, eri, nocc: int, dm0):
     delta = torch.full((nf,), float("inf"), dtype=dt, device=dev)
     while True:
         active = (delta > TOL) & (it < MAX_CYCLE)
+        count("syncs")
         if not bool(active.any()):
             break
+        count("iters")
         F = _fock(h, eri, dm)
         err = (F @ dm - dm @ F).reshape(nf, -1)
         slot = it % DIIS_SPACE

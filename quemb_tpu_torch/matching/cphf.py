@@ -34,6 +34,7 @@ from quemb_tpu_torch.embed.fragment import Fragment
 from quemb_tpu_torch.solvers.dispatch import _batched_mo_eri, \
     run_fragment_scf
 from quemb_tpu_torch.solvers.uccsd import _mo4
+from quemb_tpu_torch.utils.profiling import span
 
 #: potentials per batch of the MP2 and CCSD responses.  The largest
 #: per-potential tensors are the rotated MO integrals, nemb^4 doubles each
@@ -533,6 +534,7 @@ def frag_jacobian_blocks(fr: Fragment, res_func=hf_response):
     }
 
 
+@span("jacobian")
 def get_be_error_jacobian(fragments: list[Fragment], jac_solver="HF"):
     """Analytic Jacobian of the BE matching conditions (optqn.py:250).
 
@@ -541,7 +543,8 @@ def get_be_error_jacobian(fragments: list[Fragment], jac_solver="HF"):
     chemical-potential row; columns are the matching potentials in the
     same order plus the chemical potential.  Each fragment contributes
     its diagonal ``edge`` block, and -- through every fragment whose
-    edge points at it -- its ``center`` block on those rows.
+    edge points at it -- its ``center`` block on those rows.  One call is
+    the tracer's ``jacobian`` span.
     """
     res_funcs = {"HF": hf_response, "MP2": mp2_response,
                  "CCSD": ccsd_response}

@@ -11,9 +11,15 @@ from __future__ import annotations
 
 import torch
 
-#: eigenvalues ascending, eigenvectors in the columns (batched over leading
-#: dimensions)
-eigh = torch.linalg.eigh
+from quemb_tpu_torch.utils.profiling import count
+
+
+def eigh(A: torch.Tensor):
+    """``torch.linalg.eigh``: eigenvalues ascending, eigenvectors in the
+    columns (batched over leading dimensions).  Counted as a host sync
+    (``syncs``): on a card it reads its error flags back."""
+    count("syncs")
+    return torch.linalg.eigh(A)
 
 
 def lowdin_inv_sqrt(S: torch.Tensor, tol: float = 1e-15) -> torch.Tensor:

@@ -16,7 +16,9 @@ arithmetic in plain torch.  Nothing falls back from one to the other.
 
 The kernel is compiled with ``nvcc`` for ``sm_90a`` into ``build/`` at the
 repository root on first use (the file name carries a hash of the source
-and flags) and bound with ``ctypes``.
+and flags) and bound with ``ctypes``.  Each launch adds one to the
+tracer's ``screened_df.launches`` counter
+(:func:`quemb_tpu_torch.utils.profiling.count`).
 """
 
 from __future__ import annotations
@@ -31,6 +33,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from quemb_tpu_torch.utils.profiling import count
+
 NU_BLOCK = 16
 #: kept-block capacity of the kernel's parameter list (nao <= 8192)
 MAX_BLOCKS = 512
@@ -39,9 +43,6 @@ MAX_BLOCKS = 512
 #: split over launches that accumulate.  The kernel owns the rest of its
 #: layout and rejects a launch that does not fit.
 TA_SMEM_MAX = 18 * NU_BLOCK * 64 * 4
-
-#: kernel launches so far in this process (one per launch, nowhere else)
-LAUNCHES = 0
 
 _SRC = Path(__file__).resolve().parents[1] / "csrc" / (
     "screened_first_transform.cu"
@@ -223,7 +224,6 @@ def screened_first_transform(
 def run_plan(B: torch.Tensor, TA: torch.Tensor, plan: list[np.ndarray]):
     """Launch the kernel once per kept list of ``plan`` (see
     :func:`plan_launches`) into a new output, on the current stream."""
-    global LAUNCHES
     naux, nao, _ = B.shape
     nemb = TA.shape[1]
     out = torch.empty((naux, nao, nemb), dtype=torch.float32, device=B.device)
@@ -239,7 +239,7 @@ def run_plan(B: torch.Tensor, TA: torch.Tensor, plan: list[np.ndarray]):
             raise RuntimeError(
                 f"screened_first_transform kernel: CUDA error {rc}"
             )
-        LAUNCHES += 1
+        count("screened_df.launches")
     return out
 
 

@@ -25,6 +25,8 @@ from dataclasses import dataclass
 
 import torch
 
+from quemb_tpu_torch.utils.profiling import attached, current
+
 
 @dataclass(frozen=True)
 class Mesh:
@@ -126,7 +128,8 @@ def run_on_shards(fn, chunks, devices):
     """``fn(chunk, device)`` for each chunk on its device, on one thread
     per chunk (inline for a single chunk), a card's under
     ``torch.cuda.device``; returns the results in shard order.  A shard's
-    exception propagates (the other shards finish first)."""
+    exception propagates (the other shards finish first).  The tracer's
+    spans and counts of a shard go under the caller's open span."""
     def call(chunk, device):
         if device is not None and device.type == "cuda":
             with torch.cuda.device(device):
@@ -135,8 +138,14 @@ def run_on_shards(fn, chunks, devices):
 
     if len(chunks) == 1:
         return [call(chunks[0], devices[0])]
+    parent = current()
+
+    def shard(chunk, device):
+        with attached(parent):
+            return call(chunk, device)
+
     with ThreadPoolExecutor(max_workers=len(chunks)) as pool:
-        futures = [pool.submit(call, c, d) for c, d in zip(chunks, devices)]
+        futures = [pool.submit(shard, c, d) for c, d in zip(chunks, devices)]
         return [f.result() for f in futures]
 
 

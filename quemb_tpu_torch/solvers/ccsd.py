@@ -39,6 +39,7 @@ from quemb_tpu_torch.ops.eri_transform import batched_mo_eri
 from quemb_tpu_torch.parallel.mesh import map_batches
 from quemb_tpu_torch.solvers.ccsd_mat import ccsd_update_mat, fused_blocks
 from quemb_tpu_torch.solvers.rccsd_mat import _p
+from quemb_tpu_torch.utils.profiling import count
 
 #: amplitude history length of the CCSD DIIS (the JAX default)
 DIIS_SPACE = 6
@@ -238,7 +239,8 @@ def _diis_loop(step, t1_0, T2p_0, conv_tol, max_cycle):
     errors; the f32 error Gram is solved in f64, per lane.  A lane stops
     once its step norm is at most ``conv_tol`` or after ``max_cycle``
     steps, and then stays frozen.  Returns (t1, T2p, n_it [nf], delta [nf]
-    f64).
+    f64).  Counts each loop trip (``iters``) and each flag read
+    (``syncs``) on the innermost open span of the tracer.
     """
     dtype, dev = T2p_0.dtype, T2p_0.device
     nf, no, nv = t1_0.shape
@@ -254,8 +256,10 @@ def _diis_loop(step, t1_0, T2p_0, conv_tol, max_cycle):
     delta = torch.full((nf,), float("inf"), dtype=torch.float64, device=dev)
     while True:
         active = (delta > conv_tol) & (it < max_cycle)
+        count("syncs")
         if not bool(active.any()):
             break
+        count("iters")
         t1n, T2n = step(t1, T2p)
         e1 = t1n - t1
         e2 = T2n - T2p
@@ -451,6 +455,7 @@ def ccsd_so_large(eri_mo, moe, nsocc: int, max_cycle: int = 150):
                                         max_cycle=max_cycle)
     t1_sp, t2_sp = _split_spatial(t1f[0].double(), t2f[0].double(), nsocc,
                                   eri_mo.shape[0])
+    count("syncs", 2)
     return t1_sp, t2_sp, int(it[0]), float(delta[0])
 
 

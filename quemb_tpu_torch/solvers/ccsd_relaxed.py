@@ -26,6 +26,7 @@ from torch.func import grad, vjp
 
 from quemb_tpu_torch.solvers.ccsd import _diis_stage, so_blocks
 from quemb_tpu_torch.solvers.ccsd_mat import ccsd_update_mat
+from quemb_tpu_torch.utils.profiling import count
 
 
 def _occupations(nmo: int, nsocc: int, like: torch.Tensor, value: float):
@@ -53,6 +54,7 @@ def _hbar_pieces(h_mo, eri_mo, nsocc):
     # spin-orbital Fock blocks (spin-major layout), by gathers
     f_so = torch.kron(torch.eye(2, dtype=fock.dtype, device=fock.device),
                       fock)
+    count("syncs")
     order = torch.tensor(
         list(range(nsocc)) + list(range(nmo, nmo + nsocc))
         + list(range(nsocc, nmo)) + list(range(nmo + nsocc, 2 * nmo)),
@@ -123,6 +125,7 @@ def _relaxed_rdm_grads(h_mo, eri_mo, nsocc, max_cycle=150):
         d1, d2 = u_vjp((w1, w2))
         w1n = e_t[0] + d1
         w2n = e_t[1] + d2
+        count("syncs")
         dl = float(torch.sqrt(((w1n - w1) ** 2).sum()
                               + ((w2n - w2) ** 2).sum()))
         w1, w2 = w1n, w2n
@@ -151,4 +154,5 @@ def ccsd_relaxed_rdms(h_mo, eri_mo, nsocc: int):
     # restore the full 8-fold symmetry the gradient spreads arbitrarily
     rdm2 = 0.5 * (rdm2 + rdm2.permute(1, 0, 3, 2))
     rdm2 = 0.5 * (rdm2 + rdm2.permute(2, 3, 0, 1))
+    count("syncs")
     return rdm1, rdm2, float(e_val)

@@ -49,6 +49,7 @@ from quemb_tpu_torch.solvers.mp2 import _occ_projector, \
 from quemb_tpu_torch.solvers.rccsd import _rccsd_from_mo_batched, \
     rccsd_large
 from quemb_tpu_torch.solvers.sci import solve_sci
+from quemb_tpu_torch.utils.profiling import count, span
 
 #: largest padded embedding dimension of the batched bucket path on a
 #: card; wider CCSD and MP2 buckets go through the fragment-at-a-time path
@@ -65,6 +66,7 @@ def _mo_transform(C_b, h_b, eri_b):
     orbitals, computed on the device and brought to the host (for the CI
     solver): (h_mo [nf, n, n], eri_mo [nf, n, n, n, n]) as numpy."""
     h_mo = C_b.transpose(1, 2) @ h_b @ C_b
+    count("syncs", 2)
     return h_mo.cpu().numpy(), _batched_mo_eri(eri_b, C_b).cpu().numpy()
 
 
@@ -207,6 +209,7 @@ def _bucket_dev(frs: list[Fragment], pads: tuple[tuple[int, int], ...],
             for fr, (po, pv) in zip(frs, pads)
         ]), device=device)
 
+    count("syncs", 5)  # the five host stacks below
     out = dict(
         eri=torch.stack([
             _pad_frag_op(fr.eri.to(device), po, pv)
@@ -322,15 +325,22 @@ def _solve_bucket_large(frs, solver, eeval, use_cumulant):
         nsocc = fr.nsocc
         eri = fr.eri[None]
         device = eri.device
-        h, dm0 = (
-            torch.as_tensor(a, device=device)[None]
-            for a in (fr.fock + fr.heff, fr.dm0)
-        )
-        moe, C, _, _ = rhf_orthonormal(h, eri, nsocc, dm0)
-        eri_mo = _batched_mo_eri(eri, C)
+        with span("inputs"):
+            h, dm0 = (
+                torch.as_tensor(a, device=device)[None]
+                for a in (fr.fock + fr.heff, fr.dm0)
+            )
+            count("syncs", 2)
+        with span("scf"):
+            moe, C, _, _ = rhf_orthonormal(h, eri, nsocc, dm0)
+        with span("mo_transform"):
+            eri_mo = _batched_mo_eri(eri, C)
         if solver == "CCSD":
-            large = ccsd_so_large if _spinorb() else rccsd_large
-            t1, t2, _, delta = large(eri_mo[0], moe[0], nsocc)
+            with span("ccsd"):
+                large = ccsd_so_large if _spinorb() else rccsd_large
+                t1, t2, it, delta = large(eri_mo[0], moe[0], nsocc)
+                count("lanes")
+                count("lane_iters", it)
             if not _f32_only() and delta > 10 * _default_conv_tol():
                 warnings.warn(
                     f"CCSD fragment not fully converged: max|dt| = "
@@ -340,34 +350,39 @@ def _solve_bucket_large(frs, solver, eeval, use_cumulant):
             t2 = mp2_amplitudes(eri_mo[0], moe[0], nsocc)[0]
             t1 = t2.new_zeros((nsocc, fr.nao - nsocc))
         del eri_mo
-        rdm1, rdm2 = _rdm12_urlx_batched(t1[None], t2[None],
-                                         with_dm1=not use_cumulant)
-        fr.t1, fr.t2 = t1, t2  # device
-        fr.mo_coeffs = C[0].cpu().numpy()
-        fr.mo_energy = moe[0].cpu().numpy()
-        fr._rdm1 = _batched_rdm1_emb(C, rdm1)[0].cpu().numpy()
-        fr.rdm1__ = rdm1[0]  # device
+        with span("rdm"):
+            rdm1, rdm2 = _rdm12_urlx_batched(t1[None], t2[None],
+                                             with_dm1=not use_cumulant)
+            fr.t1, fr.t2 = t1, t2  # device
+            fr.mo_coeffs = C[0].cpu().numpy()
+            fr.mo_energy = moe[0].cpu().numpy()
+            fr._rdm1 = _batched_rdm1_emb(C, rdm1)[0].cpu().numpy()
+            count("syncs", 3)
+            fr.rdm1__ = rdm1[0]  # device
         if not eeval:
             continue
         fr.rdm2__ = rdm2[0]  # device
-        occ_mask = torch.zeros((1, fr.nao), dtype=C.dtype, device=device)
-        occ_mask[0, :nsocc] = 1.0
-        center_w = np.zeros((1, fr.nao))
-        w, idx = fr.weight_and_relAO_per_center
-        center_w[0, list(idx)] = w
-        center_w = torch.as_tensor(center_w, device=device)
-        h1 = torch.as_tensor(fr.h1, device=device)[None]
-        if use_cumulant:
-            rows = _batched_energy_rows(
-                C, h1, torch.as_tensor(fr.veff0, device=device)[None], eri,
-                rdm1, rdm2, occ_mask, center_w,
-            )
-        else:
-            rows = _batched_energy_rows_nc(
-                C, h1, torch.as_tensor(fr.veff, device=device)[None], eri,
-                rdm1, rdm2, center_w,
-            )
-        e = [float(x[0]) for x in rows]
+        with span("energy"):
+            occ_mask = torch.zeros((1, fr.nao), dtype=C.dtype,
+                                   device=device)
+            occ_mask[0, :nsocc] = 1.0
+            center_w = np.zeros((1, fr.nao))
+            w, idx = fr.weight_and_relAO_per_center
+            center_w[0, list(idx)] = w
+            center_w = torch.as_tensor(center_w, device=device)
+            h1 = torch.as_tensor(fr.h1, device=device)[None]
+            veff = fr.veff0 if use_cumulant else fr.veff
+            veff = torch.as_tensor(veff, device=device)[None]
+            if use_cumulant:
+                rows = _batched_energy_rows(
+                    C, h1, veff, eri, rdm1, rdm2, occ_mask, center_w,
+                )
+            else:
+                rows = _batched_energy_rows_nc(
+                    C, h1, veff, eri, rdm1, rdm2, center_w,
+                )
+            e = [float(x[0]) for x in rows]
+            count("syncs", 6)  # three copies up, three reads
         fr.ebe = sum(e)
         tot = [a + b for a, b in zip(tot, e)]
     return tot if eeval else None
@@ -402,15 +417,18 @@ def _solve_bucket_batched(frs, solver, eeval, use_cumulant, relax_density,
         )
     nsocc = frs[0].nsocc + pads[0][0]
     nemb = frs[0].nao + pads[0][0] + pads[0][1]
-    dev = _bucket_dev(frs, pads,
-                      frs[0].eri.device if device is None else device)
-    device = dev["fock"].device
-    heff_b = torch.as_tensor(np.stack([
-        _pad_frag_op(fr.heff, po, pv) for fr, (po, pv) in zip(frs, pads)
-    ]), device=device)
-    h_b = dev["fock"] + heff_b
-    eri_b = dev["eri"]
-    moe_b, C_b, _, _ = rhf_orthonormal(h_b, eri_b, nsocc, dev["dm0"])
+    with span("inputs"):
+        dev = _bucket_dev(frs, pads,
+                          frs[0].eri.device if device is None else device)
+        device = dev["fock"].device
+        heff_b = torch.as_tensor(np.stack([
+            _pad_frag_op(fr.heff, po, pv) for fr, (po, pv) in zip(frs, pads)
+        ]), device=device)
+        count("syncs")
+        h_b = dev["fock"] + heff_b
+        eri_b = dev["eri"]
+    with span("scf"):
+        moe_b, C_b, _, _ = rhf_orthonormal(h_b, eri_b, nsocc, dev["dm0"])
 
     t1_b = t2_b = None
     if solver == "CCSD" and relax_density:
@@ -427,7 +445,8 @@ def _solve_bucket_batched(frs, solver, eeval, use_cumulant, relax_density,
         rdm1_b, rdm2_b = torch.stack(rdm1_l), torch.stack(rdm2_l)
     elif solver == "CCSD":
         f32_only = _f32_only()
-        eri_mo_b = _batched_mo_eri(eri_b, C_b)
+        with span("mo_transform"):
+            eri_mo_b = _batched_mo_eri(eri_b, C_b)
         if _spinorb():
             if padded:
                 raise ValueError(
@@ -440,15 +459,22 @@ def _solve_bucket_batched(frs, solver, eeval, use_cumulant, relax_density,
             def amplitudes(eri_mo_b, moe_b, nsocc):
                 return _rccsd_from_mo_batched(eri_mo_b, moe_b, nsocc,
                                               f32_only=f32_only)
-        t1_b, t2_b, _, delta = amplitudes(eri_mo_b, moe_b, nsocc)
-        rdm1_b, rdm2_b = _rdm12_urlx_batched(
-            t1_b, t2_b, with_dm1=not use_cumulant
-        )
-        delta_max = float(delta.max())
+        with span("ccsd"):
+            t1_b, t2_b, it, delta = amplitudes(eri_mo_b, moe_b, nsocc)
+            # one read: the lanes' last steps and their iteration counts
+            host = torch.cat([delta, it.to(delta.dtype)]).cpu().numpy()
+            count("syncs")
+            delta_max = float(host[:len(frs)].max())
+            count("lanes", len(frs))
+            count("lane_iters", int(host[len(frs):].sum()))
         if not f32_only and delta_max > 10 * _default_conv_tol():
             warnings.warn(
                 f"CCSD bucket not fully converged: "
                 f"max|dt| = {delta_max:.2e}"
+            )
+        with span("rdm"):
+            rdm1_b, rdm2_b = _rdm12_urlx_batched(
+                t1_b, t2_b, with_dm1=not use_cumulant
             )
     elif solver == "MP2":
         t2_mp, _ = mp2_amplitudes(_batched_mo_eri(eri_b, C_b), moe_b, nsocc)
@@ -467,13 +493,16 @@ def _solve_bucket_batched(frs, solver, eeval, use_cumulant, relax_density,
             rdm2_l.append(rdm2)
         rdm1_b = torch.as_tensor(np.stack(rdm1_l), device=device)
         rdm2_b = torch.as_tensor(np.stack(rdm2_l), device=device)
+        count("syncs", 2)
 
     # correlated 1-RDM in the embedding basis (for the error vector); all
     # big operands stay on the device, only per-fragment scalars and
     # [nemb, nemb] matrices come back to the host
-    rdm1_emb_host = _batched_rdm1_emb(C_b, rdm1_b).cpu().numpy()
-    C_host = C_b.cpu().numpy()
-    moe_host = moe_b.cpu().numpy()
+    with span("rdm"):
+        rdm1_emb_host = _batched_rdm1_emb(C_b, rdm1_b).cpu().numpy()
+        C_host = C_b.cpu().numpy()
+        moe_host = moe_b.cpu().numpy()
+        count("syncs", 3)
     for k, fr in enumerate(frs):
         # pad orbitals are exactly decoupled: occupied pads (-_PAD_SHIFT)
         # sort first, virtual pads (+_PAD_SHIFT) last, so the real MOs are
@@ -494,23 +523,27 @@ def _solve_bucket_batched(frs, solver, eeval, use_cumulant, relax_density,
     if not eeval:
         return None
 
-    center_w = np.zeros((len(frs), nemb))
-    for i, fr in enumerate(frs):
-        w, idx = fr.weight_and_relAO_per_center
-        center_w[i, list(idx)] = w
-    center_w_b = torch.as_tensor(center_w, device=device)
-    if use_cumulant:
-        occ_mask = np.zeros((len(frs), nemb))
-        occ_mask[:, :nsocc] = 1.0
-        e1, e2, ec = _batched_energy_rows(
-            C_b, dev["h1"], dev["veff0"], eri_b, rdm1_b, rdm2_b,
-            torch.as_tensor(occ_mask, device=device), center_w_b,
-        )
-    else:
-        e1, e2, ec = _batched_energy_rows_nc(
-            C_b, dev["h1"], dev["veff"], eri_b, rdm1_b, rdm2_b, center_w_b,
-        )
-    e1h, e2h, ech = (x.cpu().numpy() for x in (e1, e2, ec))
+    with span("energy"):
+        center_w = np.zeros((len(frs), nemb))
+        for i, fr in enumerate(frs):
+            w, idx = fr.weight_and_relAO_per_center
+            center_w[i, list(idx)] = w
+        center_w_b = torch.as_tensor(center_w, device=device)
+        if use_cumulant:
+            occ_mask = np.zeros((len(frs), nemb))
+            occ_mask[:, :nsocc] = 1.0
+            e1, e2, ec = _batched_energy_rows(
+                C_b, dev["h1"], dev["veff0"], eri_b, rdm1_b, rdm2_b,
+                torch.as_tensor(occ_mask, device=device), center_w_b,
+            )
+            count("syncs")
+        else:
+            e1, e2, ec = _batched_energy_rows_nc(
+                C_b, dev["h1"], dev["veff"], eri_b, rdm1_b, rdm2_b,
+                center_w_b,
+            )
+        e1h, e2h, ech = (x.cpu().numpy() for x in (e1, e2, ec))
+        count("syncs", 4)  # the weights' copy up, three reads
     for fr, a, b, c in zip(frs, e1h, e2h, ech):
         fr.ebe = float(a + b + c)
     return [float(e1h.sum()), float(e2h.sum()), float(ech.sum())]
@@ -583,6 +616,7 @@ def form_merge_classes(
     return merge_classes
 
 
+@span("eval")
 def be_func(
     pot,
     fragments: list[Fragment],
@@ -596,13 +630,14 @@ def be_func(
 ):
     """Solve all fragments; return error norm / vector / energies.
 
-    Same return contract as reference ``molbe/solver.py:be_func``.
+    Same return contract as reference ``molbe/solver.py:be_func``.  One
+    call is the tracer's ``eval`` span.
     """
-    for fr in fragments:
-        if pot is not None:
-            fr.update_heff(pot, only_chem=only_chem)
-
-    merge_classes = form_merge_classes(fragments, solver, relax_density)
+    with span("inputs"):
+        for fr in fragments:
+            if pot is not None:
+                fr.update_heff(pot, only_chem=only_chem)
+        merge_classes = form_merge_classes(fragments, solver, relax_density)
 
     total_e = [0.0, 0.0, 0.0]
     for pairs in merge_classes:
@@ -617,7 +652,8 @@ def be_func(
     Ecorr = sum(total_e)
     if eeval and not return_vec:
         return (Ecorr, total_e)
-    ernorm, ervec = solve_error(fragments, Nocc, only_chem=only_chem)
+    with span("error"):
+        ernorm, ervec = solve_error(fragments, Nocc, only_chem=only_chem)
     if eeval:
         return (ernorm, ervec, [Ecorr, total_e])
     if return_vec:

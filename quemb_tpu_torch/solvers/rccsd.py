@@ -25,6 +25,7 @@ from quemb_tpu_torch.solvers.ccsd import _default_conv_tol, _diis_loop, \
     _f32_only, _f32_tol
 from quemb_tpu_torch.solvers.rccsd_mat import rccsd_fused_blocks, \
     rccsd_update_mat
+from quemb_tpu_torch.utils.profiling import count
 
 #: iteration cap of the closed-shell CCSD (the JAX functions' default
 #: ``max_cycle``); a caller that needs more sets it and restores it
@@ -111,6 +112,7 @@ def rccsd_large(eri_mo, moe, nsocc: int):
     t1, t2, it, delta = _rccsd_from_mo_batched(
         eri_mo[None], moe[None], nsocc, f32_only=_f32_only()
     )
+    count("syncs", 2)
     return t1[0], t2[0], int(it[0]), float(delta[0])
 
 

@@ -10,7 +10,6 @@ host backend, where the port runs on the caller's device.
 
 from __future__ import annotations
 
-import time
 from collections import defaultdict
 from functools import wraps
 
@@ -23,14 +22,24 @@ class FunctionTimer:
         self.counts: dict[str, int] = defaultdict(int)
 
     def timeit(self, f):
+        """Time each call of ``f`` as a tracer span named by its qualname
+        (:mod:`quemb_tpu_torch.utils.profiling`); a method of an object
+        that carries a ``trace_id`` records into that trace."""
+        # profiling imports this module for ``timer``
+        from quemb_tpu_torch.utils.profiling import span  # noqa: PLC0415
+
+        name = f.__qualname__
+
         @wraps(f)
         def wrapper(*args, **kwargs):
-            t0 = time.perf_counter()
+            sp = span(name, getattr(args[0], "trace_id", None)
+                      if args else None)
             try:
-                return f(*args, **kwargs)
+                with sp:
+                    return f(*args, **kwargs)
             finally:
-                self.times[f.__qualname__] += time.perf_counter() - t0
-                self.counts[f.__qualname__] += 1
+                self.times[name] += sp.seconds
+                self.counts[name] += 1
 
         return wrapper
 

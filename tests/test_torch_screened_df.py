@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from quemb_tpu_torch.ops import screened_df as sd
+from quemb_tpu_torch.utils.profiling import total
 
 torch.set_num_threads(1)
 
@@ -142,10 +143,10 @@ def test_plan_launches_covers_the_kept_blocks(nao, nemb, kept):
 
 def test_cpu_tensor_takes_plain_version_without_counting():
     B, TA, reach = _inputs("full")
-    before = sd.LAUNCHES
+    before = total("screened_df.launches")
     sd.screened_first_transform(torch.as_tensor(B), torch.as_tensor(TA),
                                 reach)
-    assert sd.LAUNCHES == before
+    assert total("screened_df.launches") == before
 
 
 @pytest.mark.parametrize("bad", ["f64", "shape", "reach", "strided"])
@@ -172,13 +173,13 @@ def test_cuda_kernel_matches_plain_on_card(case):
     B, TA, reach = _inputs(case)
     B = torch.as_tensor(B, device="cuda")
     TA = torch.as_tensor(TA, device="cuda")
-    before = sd.LAUNCHES
+    before = total("screened_df.launches")
     out = sd.screened_first_transform(B, TA, reach)
     ref = sd.screened_first_transform_plain(
         B, TA, sd.block_rowmask(reach, B.dtype, B.device)
     )
     torch.cuda.synchronize()
-    assert sd.LAUNCHES == before + 1
+    assert total("screened_df.launches") == before + 1
     err = float((out - ref).abs().max())
     assert err <= REL_TOL * float(ref.abs().max())
 

@@ -15,7 +15,9 @@ in phases; each prints one line, and any
 failure raises (non-zero exit, no ``ok`` line):
 
 0. the device: CUDA name, and ``nvidia-smi`` name and power limit;
-1. build the screened-DF CUDA kernel from ``quemb_tpu_torch/csrc``;
+1. build the two CUDA kernels of ``quemb_tpu_torch/csrc``, the
+   screened-DF transform and the Jacobi eigh (seconds and ``ptxas``
+   lines each; a spill fails);
 2. kernel against its plain torch version on the card, on every octane
    fragment's screened basis against the octane Cholesky factor, on a
    synthetic case with skipped and partly reachable blocks, and on a
@@ -142,8 +144,22 @@ failure raises (non-zero exit, no ``ok`` line):
     and 1e-6 Ha of the reference's -310.3347211309688, with the walls;
     then ``entry.dryrun_multichip(2)`` and ``entry.entry()`` once.
 
-No phase from 10 on reaches the kernel (their launch counts are printed
-and are 0).  The last lines are the kernel report (JSON), the card's name and power
+21. the batched Jacobi eigh kernel (``csrc/jacobi_eigh.cu``): the loaded
+    function's registers and local (spill) bytes (``cudaFuncGetAttributes``;
+    local bytes fail), then at the fragment SCF's shapes on the main path
+    (6 x 41 and 6 x 9 for BE2, 1 x 57 and 1 x 9 for BE3), on seeded
+    symmetric matrices, the kernel against ``torch.linalg.eigh`` and its
+    plain version (eigenvalues and ``||AV - VW||`` within 1e-12
+    ``||A||_F``, ``||V^T V - I||`` within 1e-13), and the three timed:
+    device ms from CUDA events as in phase 2 (warm) and host wall ms a
+    call, with the sweeps each matrix took, beside the kernel's floor
+    (:func:`eigh_bound_ms`) and its share of it.
+
+No phase from 10 on reaches the screened-DF kernel (their launch counts
+are printed and are 0).  Every phase line carries ``eigh_launches``, the
+Jacobi eigh kernel's launches since the line before (the tracer's
+``jacobi_eigh.launches`` counter); a phase of :data:`EIGH_PHASES`, each a
+float64 fragment SCF of order <= 64 on the card, fails if it reads 0.  The last lines are the kernel report (JSON), the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -342,8 +358,31 @@ POLY_ETOT_PUBLISHED_TOL = 1.5e-3
 POLY_JK_CALLS = 5  # get_jk calls between two CUDA events
 
 
+#: phases that run a float64 fragment SCF of order <= 64 on the card: every
+#: phase from 3 on but 7 and 8 (the chain's mean field, which is wider, and
+#: its transforms), and phase 21
+EIGH_PHASES = (3, 4, 5, 6, *range(9, 22))
+#: the Jacobi eigh kernel's launches in each phase
+EIGH_BY_PHASE: dict[int, int] = {}
+
+
+def eigh_launches() -> int:
+    """Jacobi eigh kernel launches so far in this process (the tracer's
+    ``jacobi_eigh.launches`` counter)."""
+    from quemb_tpu_torch.utils.profiling import total
+
+    return total("jacobi_eigh.launches")
+
+
 def phase(n, **facts):
-    print(json.dumps({"phase": n, **facts}), flush=True)
+    """Print phase ``n``'s line with the Jacobi eigh kernel's launches
+    since the line before; a phase of :data:`EIGH_PHASES` that launched
+    it 0 times fails."""
+    EIGH_BY_PHASE[n] = eigh_launches() - sum(EIGH_BY_PHASE.values())
+    print(json.dumps({"phase": n, **facts,
+                      "eigh_launches": EIGH_BY_PHASE[n]}), flush=True)
+    if n in EIGH_PHASES and not EIGH_BY_PHASE[n]:
+        raise AssertionError(f"phase {n} never launched the Jacobi eigh")
 
 
 def kernel_launches() -> int:
@@ -1539,11 +1578,123 @@ def fragment_mesh(qt, sd, mf, fobj, card):
             and abs(etot["two_on_cuda0"] - ETOT_MATCHED_REF)
             < MATCHED_TOL):
         raise AssertionError(f"optimize under two shards: {etot}")
-    if not (dry["devices"] == ["cuda:0"] and np.isfinite(dry["ecorr"])):
+    # two shards over the visible cards in turn
+    dry_devices = sorted({f"cuda:{k % torch.cuda.device_count()}"
+                          for k in range(2)})
+    if not (dry["devices"] == dry_devices and np.isfinite(dry["ecorr"])):
         raise AssertionError(f"dryrun_multichip(2): {dry}")
     if not entry_ok:
         raise AssertionError("entry(): non-finite or unconverged step")
     return launches
+
+
+#: phase 21: (batch, n) of the fragment SCF's eighs on the benchmark's
+#: main path (BE2's Fock and DIIS matrices, BE3's), and the bars
+EIGH_SHAPES = ((6, 41), (6, 9), (1, 57), (1, 9))
+EIGH_TOL = 1e-12  # eigenvalues and residual, relative to ||A||_F
+EIGH_ORTH_TOL = 1e-13
+EIGH_WALL_CALLS = 50
+#: the kernel's floor a step: the bytes an SM's shared memory moves a
+#: clock, and one block barrier's latency in clocks (assumed, not
+#: measured on the card)
+SMEM_BYTES_PER_CLOCK = 128
+BARRIER_CYCLES = 24
+
+
+def sm_clock_mhz() -> float:
+    """The card's highest SM clock in MHz (``nvidia-smi``)."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.split()[0])
+
+
+def eigh_bound_ms(m: int, sweeps: int, clock_mhz: float) -> float:
+    """The Jacobi eigh kernel's floor for a matrix of even order ``m`` that
+    takes ``sweeps`` sweeps: (m - 1) x sweeps steps that depend on each
+    other, each at least its pass over A in shared memory (2 m^2 doubles,
+    read and written, at :data:`SMEM_BYTES_PER_CLOCK`) and its two
+    barriers, at the highest SM clock.  Matrices of a batch run side by
+    side, so a batch's floor is that of its matrix with the most sweeps."""
+    step = 2 * m * m * 8 / SMEM_BYTES_PER_CLOCK + 2 * BARRIER_CYCLES
+    return (m - 1) * sweeps * step / (clock_mhz * 1e3)
+
+
+def host_ms(fn, calls=EIGH_WALL_CALLS) -> float:
+    """Host wall milliseconds a call over ``calls`` calls, from an idle
+    device to the last call's end."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / calls
+
+
+def eigh_errors(A, w, V, w_ref) -> dict:
+    """Largest eigenvalue difference and residual over ||A||_F, and the
+    largest entry of V^T V - I."""
+    scale = torch.linalg.matrix_norm(A)
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    res = torch.linalg.matrix_norm(A @ V - V * w[:, None, :])
+    return dict(
+        eig=float(((w - w_ref).abs().amax(-1) / scale).max()),
+        residual=float((res / scale).max()),
+        orth=float((V.transpose(1, 2) @ V - eye).abs().max()),
+    )
+
+
+def jacobi_eigh_phase(card):
+    """Phase 21: the loaded Jacobi eigh kernel's registers and spills,
+    then the kernel against the library and its plain version at the main
+    path's shapes, the three timed, beside the kernel's floor."""
+    from quemb_tpu_torch.ops import jacobi_eigh as je
+
+    cuda = torch.device("cuda")
+    attrs = je.kernel_attributes(cuda)
+    if attrs["local_bytes"]:
+        raise AssertionError(f"jacobi_eigh uses local memory: {attrs}")
+    clock = sm_clock_mhz()
+    rng = np.random.default_rng(21)
+    shapes = {}
+    for nb, n in EIGH_SHAPES:
+        X = torch.as_tensor(rng.standard_normal((nb, n, n)), device=cuda)
+        A = X + X.transpose(1, 2)
+        w, V, sweeps = je.jacobi_eigh(A)
+        wp, _, sweeps_p = je.jacobi_eigh_plain(A)
+        wl, _ = torch.linalg.eigh(A)
+        errs = {"library": eigh_errors(A, w, V, wl),
+                "plain": eigh_errors(A, w, V, wp)}
+        versions = {"": lambda: je.jacobi_eigh(A),
+                    "plain_": lambda: je.jacobi_eigh_plain(A),
+                    "library_": lambda: torch.linalg.eigh(A)}
+        times = {f"{k}{u}": [] for k in versions for u in ("ms", "wall_ms")}
+        for _ in range(5):  # in turns; medians
+            for k, fn in versions.items():
+                calls = 1 if k == "plain_" else CALLS_PER_TIMING
+                times[f"{k}ms"].append(device_ms(fn, calls))
+                times[f"{k}wall_ms"].append(
+                    host_ms(fn, 2 if k == "plain_" else EIGH_WALL_CALLS))
+        m = n + n % 2
+        out = {k: float(np.median(v)) for k, v in times.items()}
+        out.update(sweeps=sweeps.cpu().tolist(),
+                   plain_sweeps=sweeps_p.cpu().tolist(), errors=errs,
+                   steps=(m - 1) * int(sweeps.max()),
+                   bound_ms=eigh_bound_ms(m, int(sweeps.max()), clock))
+        out["us_per_step"] = 1e3 * out["ms"] / max(out["steps"], 1)
+        out["bound_share"] = 100.0 * out["bound_ms"] / out["ms"]
+        shapes[f"{nb}x{n}"] = out
+        for name, e in errs.items():
+            if not (e["eig"] <= EIGH_TOL and e["residual"] <= EIGH_TOL
+                    and e["orth"] <= EIGH_ORTH_TOL):
+                raise AssertionError(
+                    f"jacobi_eigh {nb}x{n} against {name}: {e}")
+    phase(21, **attrs, sm_clock_mhz=clock, shapes=shapes,
+          max_sweeps=je.MAX_SWEEPS, timings=5,
+          calls_per_timing=CALLS_PER_TIMING, wall_calls=EIGH_WALL_CALLS,
+          card=card)
+    return shapes
 
 
 def main():
@@ -1562,15 +1713,19 @@ def main():
     phase(0, device=kind, nvidia_smi=card, torch=torch.__version__,
           cuda=torch.version.cuda)
 
-    # ---- 1. build the kernel
-    build = sd.build_library()
-    ptxas = [ln for ln in build["ptxas"] if "Used" in ln or "spill" in ln]
-    spills = [ln for ln in ptxas
+    # ---- 1. build the kernels
+    from quemb_tpu_torch.ops import jacobi_eigh as je
+
+    builds = {"screened_first_transform": sd.build_library(),
+              "jacobi_eigh": je.build_library()}
+    ptxas = {k: [ln for ln in b["ptxas"] if "Used" in ln or "spill" in ln]
+             for k, b in builds.items()}
+    spills = [ln for lns in ptxas.values() for ln in lns
               if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
-    phase(1, build_seconds=build["seconds"], cached=build["cached"],
-          ptxas=ptxas)
+    phase(1, build_seconds={k: b["seconds"] for k, b in builds.items()},
+          cached={k: b["cached"] for k, b in builds.items()}, ptxas=ptxas)
     if spills:
-        raise AssertionError(f"the kernel spills registers: {spills}")
+        raise AssertionError(f"a kernel spills registers: {spills}")
 
     # ---- 2. kernel against the plain version on the card
     cuda = torch.device("cuda")
@@ -1807,6 +1962,9 @@ def main():
     with _env(QUEMB_TPU_CCSD_CONV_TOL="1e-9"):
         later["fragment_mesh"] = fragment_mesh(qt, sd, mf, fobj, card)
 
+    # ---- 21. the batched Jacobi eigh kernel at the main path's shapes
+    eigh_shapes = jacobi_eigh_phase(card)
+
     main = timed["octane_frag0"]
     print(json.dumps({"kernels": [{
         "name": "screened_first_transform",
@@ -1828,6 +1986,18 @@ def main():
             "shape", "ms", "cold_ms", "plain_ms", "plain_cold_ms",
             "library_ms", "library_cold_ms", "bound_ms", "bound_by",
             "roofline_share_cold")} for k, v in timed.items()},
+    }, {
+        "name": "jacobi_eigh",
+        "route": "cuda",
+        "source": "quemb_tpu_torch/csrc/jacobi_eigh.cu",
+        "replaces": "torch.linalg.eigh (cuSOLVER syevd); no TPU kernel",
+        "bound_by": "latency: (m - 1) x sweeps dependent steps, each its"
+                    " shared-memory pass over A and two barriers",
+        "launches_by_phase": EIGH_BY_PHASE,
+        "shapes": {k: {f: v[f] for f in (
+            "ms", "wall_ms", "plain_ms", "library_ms", "library_wall_ms",
+            "sweeps", "steps", "us_per_step", "bound_ms", "bound_share")}
+            for k, v in eigh_shapes.items()},
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

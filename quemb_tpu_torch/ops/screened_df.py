@@ -15,8 +15,8 @@ On a CPU tensor it runs :func:`screened_first_transform_plain`, the same
 arithmetic in plain torch.  Nothing falls back from one to the other.
 
 The kernel is compiled with ``nvcc`` for ``sm_90a`` into ``build/`` at the
-repository root on first use (the file name carries a hash of the source
-and flags) and bound with ``ctypes``.  Each launch adds one to the
+repository root on first use (:mod:`quemb_tpu_torch.ops.cuda_build`) and
+bound with ``ctypes``.  Each launch adds one to the
 tracer's ``screened_df.launches`` counter
 (:func:`quemb_tpu_torch.utils.profiling.count`).
 """
@@ -24,15 +24,11 @@ tracer's ``screened_df.launches`` counter
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import time
-from pathlib import Path
 
 import numpy as np
 import torch
 
+from quemb_tpu_torch.ops import cuda_build
 from quemb_tpu_torch.utils.profiling import count
 
 NU_BLOCK = 16
@@ -44,66 +40,14 @@ MAX_BLOCKS = 512
 #: layout and rejects a launch that does not fit.
 TA_SMEM_MAX = 18 * NU_BLOCK * 64 * 4
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / (
-    "screened_first_transform.cu"
-)
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-_NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+_SRC = cuda_build.CSRC / "screened_first_transform.cu"
 _LIB = None
 
 
-def _nvcc() -> str:
-    """Path of ``nvcc``: ``$CUDA_HOME/bin``, then ``/usr/local/cuda/bin``."""
-    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if root:
-            path = Path(root) / "bin" / "nvcc"
-            if path.is_file():
-                return str(path)
-    raise RuntimeError(
-        "nvcc not found in $CUDA_HOME/bin or /usr/local/cuda/bin: the"
-        " screened-DF kernel cannot be built"
-    )
-
-
-def _library_path() -> Path:
-    digest = hashlib.sha256(
-        _SRC.read_bytes() + " ".join(_NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return _BUILD_DIR / f"screened_first_transform-{digest}.so"
-
-
 def build_library() -> dict:
-    """Compile the kernel unless the hashed library is already built.
-
-    Returns ``{"path", "cached", "seconds", "ptxas"}``; ``ptxas`` holds the
-    ``-Xptxas -v`` lines (registers, shared memory, spills) of a fresh
-    build.
-    """
-    so = _library_path()
-    if so.exists():
-        return dict(path=str(so), cached=True, seconds=0.0, ptxas=[])
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build under a per-process name, then rename: concurrent processes
-    # never load a half-written library
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, so)
-    ptxas = [
-        ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
-        if "ptxas" in ln or "spill" in ln
-    ]
-    return dict(path=str(so), cached=False, seconds=seconds, ptxas=ptxas)
+    """Compile the kernel unless the hashed library is already built
+    (:func:`quemb_tpu_torch.ops.cuda_build.build`)."""
+    return cuda_build.build(_SRC)
 
 
 def _library():

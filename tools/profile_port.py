@@ -372,6 +372,8 @@ def _variant_libraries(sd, variants):
     import ctypes
     import subprocess
 
+    from quemb_tpu_torch.ops import cuda_build
+
     procs = {}
     for name, edits in variants.items():
         src = sd._SRC.read_text()
@@ -380,11 +382,12 @@ def _variant_libraries(sd, variants):
                 raise RuntimeError(
                     f"kernel_parts: {name}: source edit not found once")
             src = src.replace(old, new)
-        cu = sd._BUILD_DIR / f"variant_{name}.cu"
+        cu = cuda_build.BUILD_DIR / f"variant_{name}.cu"
         cu.write_text(src)
         so = cu.with_suffix(".so")
         procs[name] = (so, subprocess.Popen(
-            [sd._nvcc(), *sd._NVCC_FLAGS, "-o", str(so), str(cu)],
+            [cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(so),
+             str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (so, proc) in procs.items():

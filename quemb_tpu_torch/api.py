@@ -328,7 +328,8 @@ class BE:
 
     def _read_mean_field(self, mf: RHF) -> None:
         """What construction reads of the mean field, on the host, with
-        the frozen core's density and potential folded in."""
+        the frozen core's density and potential folded in (the tracer's
+        ``core`` span)."""
         mol = mf.mol
         self.Nocc = mol.nelectron // 2
         self.enuc = mf.energy_nuc()
@@ -340,7 +341,9 @@ class BE:
         self.hf_veff = mf.get_veff()
         self.hf_etot = mf.e_tot
 
-        if self.frozen_core:
+        if not self.frozen_core:
+            return
+        with span("core"):
             self.Nocc -= self.ncore
             C_val = self.C[:, self.ncore : self.ncore + self.Nocc]
             self.hf_dm = 2.0 * C_val @ C_val.T
@@ -439,12 +442,14 @@ class BE:
         Lowdin orthogonalization runs on the device; with a frozen core
         the core is projected out, orbitals of population above 0.7 are
         kept and re-orthogonalized; Boys, PM and ER start from there.
+        IAO+PAO (:meth:`_localize_iao`) is the tracer's ``iao`` span.
         """
         norm = {"lowdin": "lowdin", "boys": "boys", "pm": "PM", "er": "ER",
                 "iao": "IAO"}
         lo_method = norm.get(lo_method.lower(), lo_method)
         if lo_method == "IAO":
-            self._localize_iao(iao_loc_method)
+            with span("iao"):
+                self._localize_iao(iao_loc_method)
             return
         if lo_method not in ("lowdin", "boys", "PM", "ER"):
             raise NotImplementedError(f"lo_method={lo_method!r}")
@@ -471,7 +476,11 @@ class BE:
         fobj = self.fobj
         assert fobj.iao_valence_basis is not None
         Co = self.C[:, : self.mol.nelectron // 2]
-        S_vw, S_vv, _ = get_xovlp(self.mol, basis=fobj.iao_valence_basis)
+        # the lowdin variant reads the valence basis's labels alone
+        S_vw = S_vv = None
+        if iao_loc_method != "lowdin":
+            S_vw, S_vv, _ = get_xovlp(self.mol,
+                                      basis=fobj.iao_valence_basis)
         Ciao = get_iao(
             Co, S_vw, self.S, S_vv, self.mol, fobj.iao_valence_basis,
             iao_loc_method,

@@ -12,14 +12,20 @@ under ``vmap``, so each lane stops exactly where it would alone.
 
 from __future__ import annotations
 
+import threading
+from collections import OrderedDict
+
 import torch
 
+from quemb_tpu_torch.ops import jacobi_eigh
 from quemb_tpu_torch.ops.linalg import eigh as _eigh
-from quemb_tpu_torch.utils.profiling import count
+from quemb_tpu_torch.utils.profiling import count, total
 
 DIIS_SPACE = 8
 TOL = 1e-12  # max |change| of the density between iterations
 MAX_CYCLE = 100
+#: on a card, replay the trips after the first as a CUDA graph
+GRAPHS = True
 
 #: detection threshold for bucket-merge pad sentinels on the Fock diagonal
 #: (solvers.dispatch._PAD_SHIFT = 1e6; physical Fock diagonals are O(10) Ha)
@@ -109,51 +115,166 @@ def _diis_solve(err_flat, fock_flat, nvalid):
     return torch.einsum("fi,fix->fx", c, fock_flat)
 
 
+def _active(it, delta):
+    """The lanes that take another trip."""
+    return (delta > TOL) & (it < MAX_CYCLE)
+
+
+def _trip(h, eri, nocc: int, state):
+    """One SCF trip of a bucket: the Fock build, DIIS, the Roothaan step.
+    ``state`` is (dm, err_buf, fock_buf, it, delta); lanes that no longer
+    take trips come back unchanged, as under vmap(while_loop)."""
+    dm, err_buf, fock_buf, it, delta = state
+    nf, n = h.shape[0], h.shape[-1]
+    active = _active(it, delta)
+    F = _fock(h, eri, dm)
+    err = (F @ dm - dm @ F).reshape(nf, -1)
+    slot = it % DIIS_SPACE
+    at_slot = (torch.arange(DIIS_SPACE, device=h.device)[None, :]
+               == slot[:, None])[:, :, None]
+    err_new = torch.where(at_slot, err[:, None, :], err_buf)
+    fock_new = torch.where(at_slot, F.reshape(nf, 1, -1), fock_buf)
+    nvalid = torch.clamp(it + 1, max=DIIS_SPACE)
+    F_x = torch.where(
+        (it > 0)[:, None, None],
+        _diis_solve(err_new, fock_new, nvalid).reshape(nf, n, n),
+        F,
+    )
+    _, C = _eigh_deflated(F_x)
+    dm_new = 2.0 * C[..., :nocc] @ C[..., :nocc].transpose(-1, -2)
+    step = (dm_new - dm).abs().amax((-2, -1))
+    a3 = active[:, None, None]
+    return (torch.where(a3, dm_new, dm),
+            torch.where(a3, err_new, err_buf),
+            torch.where(a3, fock_new, fock_buf),
+            it + active.long(),
+            torch.where(active, step, delta))
+
+
+def _graphs(h) -> bool:
+    """Whether the trips of this bucket replay as one CUDA graph: on a
+    card, when every ``eigh`` of a trip takes the Jacobi kernel, which
+    launches without reading anything back."""
+    return (GRAPHS and h.is_cuda and h.dtype == torch.float64
+            and h.shape[-1] <= jacobi_eigh.MAX_N)
+
+
+#: counters that a trip adds where it runs; a replayed trip adds them
+#: by hand, since a replay runs no Python
+_TRIP_COUNTERS = ("eigh.kernel", "jacobi_eigh.launches")
+
+#: device bytes that the captured trips kept (by device, thread and
+#: bucket shape) may hold, by :attr:`_Captured.nbytes`; the least
+#: recently used go past it.  A matching job keeps a capture for each
+#: bucket of the construction, of the evaluations and of the Jacobian's
+#: one-fragment SCFs, nine for the thiophene dimer.
+GRAPH_CACHE_BYTES = 8 << 30
+_CAPTURED: OrderedDict[tuple, _Captured] = OrderedDict()
+_SIDE_STREAMS: dict[tuple, torch.cuda.Stream] = {}
+
+
+class _Captured:
+    """One trip of a bucket shape captured as a CUDA graph over fixed
+    buffers: the inputs ``h`` and ``eri``, the state, and ``flag``, which
+    a replay sets to whether any lane takes another trip."""
+
+    def __init__(self, h, eri, nocc: int, state):
+        dev = h.device
+        self.h, self.eri = h.clone(), eri.clone()
+        self.state = tuple(t.clone() for t in state)
+        self.flag = torch.ones((), dtype=torch.bool, device=dev)
+        key = (dev.index, threading.get_ident())
+        side = _SIDE_STREAMS.get(key)
+        if side is None:
+            side = _SIDE_STREAMS[key] = torch.cuda.Stream(dev)
+        cur = torch.cuda.current_stream(dev)
+        side.wait_stream(cur)
+        before = [total(k) for k in _TRIP_COUNTERS]
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            self.graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                new = _trip(self.h, self.eri, nocc, self.state)
+                for s, t in zip(self.state, new):
+                    s.copy_(t)
+                self.flag.copy_(_active(self.state[3], self.state[4]).any())
+            finally:
+                self.graph.capture_end()
+        cur.wait_stream(side)
+        self.counts = [total(k) - b for k, b in zip(_TRIP_COUNTERS, before)]
+        # the fixed buffers, and about as much again for the graph's own
+        # temporaries (the exchange term's permuted copy of the ERI)
+        self.nbytes = 2 * sum(t.numel() * t.element_size() for t in (
+            self.h, self.eri, *self.state))
+
+    def load(self, h, eri, state) -> None:
+        self.h.copy_(h)
+        self.eri.copy_(eri)
+        for s, t in zip(self.state, state):
+            s.copy_(t)
+
+
+def _replayed_trips(h, eri, nocc: int, state):
+    """The trips after the first, on a card: if any lane takes one, a
+    trip captured as a CUDA graph (:class:`_Captured`, kept for the next
+    call with the same shape) replays until no lane takes another.  A
+    replay runs the kernels of :func:`_trip` in its order; it takes away
+    the host's launches, which bound a trip of these small batches.
+    Returns the state as :func:`_trip` would leave it."""
+    count("syncs")
+    if not bool(_active(state[3], state[4]).any()):
+        return state
+    key = (h.device.index, threading.get_ident(), tuple(h.shape), nocc)
+    cap = _CAPTURED.pop(key, None)
+    # a capture counts its trip's launches as the first replay's
+    counted = cap is None
+    if cap is None:
+        cap = _Captured(h, eri, nocc, state)
+    else:
+        cap.load(h, eri, state)
+    _CAPTURED[key] = cap
+    while (len(_CAPTURED) > 1 and sum(c.nbytes for c in _CAPTURED.values())
+           > GRAPH_CACHE_BYTES):
+        _CAPTURED.popitem(last=False)
+    more = True
+    while more:
+        count("iters")
+        if not counted:
+            for k, n in zip(_TRIP_COUNTERS, cap.counts):
+                count(k, n)
+        counted = False
+        cap.graph.replay()
+        count("syncs")
+        more = bool(cap.flag)
+    return tuple(t.clone() for t in cap.state)
+
+
 def rhf_orthonormal(h, eri, nocc: int, dm0):
     """Batched RHF with S = identity over a bucket of fragments.
 
     h, dm0: [nf, n, n]; eri: [nf, n, n, n, n].  Returns
     (mo_energy [nf, n], mo_coeff [nf, n, n], e_el [nf], n_iter [nf]).
     Counts each loop trip (``iters``) and each flag read (``syncs``) on
-    the innermost open span of the tracer.
+    the innermost open span of the tracer.  On a card, trips after the
+    first replay as a CUDA graph (:func:`_replayed_trips`).
     """
     nf, n = h.shape[0], h.shape[-1]
     dt, dev = h.dtype, h.device
-    lanes = torch.arange(nf, device=dev)
-    dm = dm0
     err_buf = torch.zeros((nf, DIIS_SPACE, n * n), dtype=dt, device=dev)
-    fock_buf = torch.zeros_like(err_buf)
-    it = torch.zeros(nf, dtype=torch.long, device=dev)
-    delta = torch.full((nf,), float("inf"), dtype=dt, device=dev)
+    state = (dm0, err_buf, torch.zeros_like(err_buf),
+             torch.zeros(nf, dtype=torch.long, device=dev),
+             torch.full((nf,), float("inf"), dtype=dt, device=dev))
+    graphs = _graphs(h)
     while True:
-        active = (delta > TOL) & (it < MAX_CYCLE)
         count("syncs")
-        if not bool(active.any()):
+        if not bool(_active(state[3], state[4]).any()):
             break
         count("iters")
-        F = _fock(h, eri, dm)
-        err = (F @ dm - dm @ F).reshape(nf, -1)
-        slot = it % DIIS_SPACE
-        err_new = err_buf.clone()
-        fock_new = fock_buf.clone()
-        err_new[lanes, slot] = err
-        fock_new[lanes, slot] = F.reshape(nf, -1)
-        nvalid = torch.clamp(it + 1, max=DIIS_SPACE)
-        F_x = torch.where(
-            (it > 0)[:, None, None],
-            _diis_solve(err_new, fock_new, nvalid).reshape(nf, n, n),
-            F,
-        )
-        _, C = _eigh_deflated(F_x)
-        dm_new = 2.0 * C[..., :nocc] @ C[..., :nocc].transpose(-1, -2)
-        step = (dm_new - dm).abs().amax((-2, -1))
-        # converged lanes stay frozen, as under vmap(while_loop)
-        a3 = active[:, None, None]
-        dm = torch.where(a3, dm_new, dm)
-        err_buf = torch.where(a3, err_new, err_buf)
-        fock_buf = torch.where(a3, fock_new, fock_buf)
-        delta = torch.where(active, step, delta)
-        it = it + active.long()
+        state = _trip(h, eri, nocc, state)
+        if graphs:
+            state = _replayed_trips(h, eri, nocc, state)
+            break
+    dm, it = state[0], state[3]
     F = _fock(h, eri, dm)
     e, C = _eigh_deflated(F)
     e_el = 0.5 * ((h + F) * dm).sum((-2, -1))

@@ -36,15 +36,20 @@ def cano_orth(C: np.ndarray, ovlp: np.ndarray, tol: float = 1e-7):
     return C @ (V[:, keep] / np.sqrt(w[keep]))
 
 
-def get_xovlp(mol: Mole, basis: str = "sto-3g"):
-    """(S12, S22): cross overlap working/valence and valence overlap."""
-    mol_alt = Mole(
+def valence_mole(mol: Mole, basis: str = "sto-3g") -> Mole:
+    """The molecule in the valence basis."""
+    return Mole(
         atom=[(s, xyz) for s, xyz in mol._atoms],
         basis=basis,
         charge=mol.charge,
         spin=mol.spin,
         unit="bohr",
     )
+
+
+def get_xovlp(mol: Mole, basis: str = "sto-3g"):
+    """(S12, S22): cross overlap working/valence and valence overlap."""
+    mol_alt = valence_mole(mol, basis)
     S12 = integrals.cross_overlap(mol, mol_alt)
     S22 = integrals.overlap(mol_alt)
     return S12, S22, mol_alt
@@ -69,9 +74,9 @@ def get_iao(
     """Symmetrically orthogonalized IAO coefficients (Knizia scheme)."""
     n = Co.shape[0]
     if iao_loc_method == "lowdin" and mol is not None and iao_valence_basis:
-        # label-subset variant (reference lo.py:118-146)
-        _, _, mol_alt = get_xovlp(mol, iao_valence_basis)
-        idx = _valence_indices(mol, mol_alt)
+        # label-subset variant (reference lo.py:118-146): the valence
+        # basis's labels alone, none of its integrals
+        idx = _valence_indices(mol, valence_mole(mol, iao_valence_basis))
         S2 = S1[np.ix_(idx, idx)]
         S12 = S1[:, idx]
 
@@ -103,8 +108,7 @@ def get_pao(
     n = Ciao.shape[0]
     Piao = Ciao @ Ciao.T @ S1
     if iao_loc_method == "lowdin" and mol is not None and iao_valence_basis:
-        _, _, mol_alt = get_xovlp(mol, iao_valence_basis)
-        idx = _valence_indices(mol, mol_alt)
+        idx = _valence_indices(mol, valence_mole(mol, iao_valence_basis))
         vir_idx = [i for i in range(n) if i not in set(idx)]
         Cpao_red = (np.eye(n) - Piao)[:, vir_idx]
     else:

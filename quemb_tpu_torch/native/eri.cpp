@@ -243,11 +243,20 @@ void build_pair(const ShellRef &sa, const ShellRef &sb,
 
 constexpr double TWO_PI_POW = 34.98683665524972497;  // 2 * pi^2.5
 
-/* contracted ERI block for one (bra pair, ket pair): out[nab*ncd] */
+/* primitive quartets bounded below this add nothing to a block */
+constexpr double PRIM_SCREEN = 1e-16;
+
+/* contracted ERI block for one (bra pair, ket pair): out[nab*ncd].
+ * Primitive quartets whose bound falls below prim_screen are skipped:
+ * PRIM_SCREEN for a block of the output, 0 (none skipped) for the
+ * Schwarz diagonals, which must not read 0 for a pair whose primitive
+ * quartets are each small: the screen would then drop that pair's every
+ * quartet, however large its partner's diagonal.                     */
 void quartet(const PairData &b, const PairData &k, const HermiteIndex &hb,
              const HermiteIndex &hk, const HermiteIndex &hall,
              const int *cmap /* [b.nT][k.nT] */, const double *sgn,
-             double *out, double *scratch) {
+             double *out, double *scratch,
+             double prim_screen = PRIM_SCREEN) {
     const int nab = b.nab, ncd = k.nab;
     std::memset(out, 0, sizeof(double) * nab * ncd);
     double *R = scratch;                    // [hall.n]
@@ -273,7 +282,7 @@ void quartet(const PairData &b, const PairData &k, const HermiteIndex &hb,
             // wrongly skipped.
             if (std::fabs(pref) * b.hmax[kp] * k.hmax[lq] *
                     std::pow(1.0 + 2.0 * alpha, 0.5 * L) <
-                1e-16)
+                prim_screen)
                 continue;
             r_tensor(L, alpha, PQ, hall, R, Rwork);
             const double *Hk = &k.H[(size_t)lq * ncd * k.nT];
@@ -410,7 +419,7 @@ void eri_full_cart(int n_shell, const int *l, const int *nprim,
             PairData &p = eng.pairs[ip];
             quartet(p, p, eng.hi(p.Lx), eng.hi(p.Lx), eng.hi(2 * p.Lx),
                     eng.cmap(p.Lx, p.Lx), eng.sgn(p.Lx), buf.data(),
-                    scratch.data());
+                    scratch.data(), 0.0);
             double m = 0.0;
             for (int ab = 0; ab < p.nab; ++ab)
                 m = std::max(m, std::fabs(buf[ab * p.nab + ab]));

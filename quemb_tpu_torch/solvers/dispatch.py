@@ -340,6 +340,7 @@ def _solve_bucket_large(frs, solver, eeval, use_cumulant):
                 large = ccsd_so_large if _spinorb() else rccsd_large
                 t1, t2, it, delta = large(eri_mo[0], moe[0], nsocc)
                 count("lanes")
+                count("large")
                 count("lane_iters", it)
             if not _f32_only() and delta > 10 * _default_conv_tol():
                 warnings.warn(
@@ -467,6 +468,10 @@ def _solve_bucket_batched(frs, solver, eeval, use_cumulant, relax_density,
             delta_max = float(host[:len(frs)].max())
             count("lanes", len(frs))
             count("lane_iters", int(host[len(frs):].sum()))
+            # the lanes' true widths, and the pads that fill each to nemb
+            orbs = sum(fr.nao for fr in frs)
+            count("orbs", orbs)
+            count("pad_orbs", nemb * len(frs) - orbs)
         if not f32_only and delta_max > 10 * _default_conv_tol():
             warnings.warn(
                 f"CCSD bucket not fully converged: "

@@ -27,14 +27,18 @@ The tracer, always on, records the stages of a BE job where they run:
 - :func:`traces` gives the newest :data:`KEEP` traces, finished spans
   only, read-only.
 
-The spans of a job: ``fragmentate``; ``construct`` with ``mean_field``,
-``localize`` and ``BE.initialize`` (``schmidt``, ``eri`` with
-``cd_factor`` on the card's in-core route, ``fragment_init``);
+The spans of a job: ``fragmentate``; ``construct`` with ``mean_field``
+(``core`` with a frozen core), ``localize`` (``iao`` for IAO+PAO) and
+``BE.initialize`` (``schmidt``, ``eri`` with ``cd_factor`` on the card's
+in-core route, ``fragment_init``);
 ``BE.optimize`` or ``BE.oneshot`` with ``jacobian`` and ``eval``, each
 ``eval`` with the stages ``inputs``, ``scf``, ``mo_transform``,
 ``ccsd``, ``rdm``, ``energy`` and ``error``.  Counters: ``iters`` (loop
 trips of the fragment SCF and of the CCSD), ``lanes`` and
-``lane_iters`` (CCSD lanes and their summed iteration counts), ``syncs``
+``lane_iters`` (CCSD lanes and their summed iteration counts), ``large``
+(the lanes solved on the large-fragment path), ``orbs`` and ``pad_orbs``
+(a batched CCSD's true widths, summed over its lanes, and the pad
+orbitals that fill them to the bucket's width), ``syncs``
 (each place where the host waits for the device: a read or copy between
 host and device, and each ``eigh``, which reads its error flags back on
 a card) and ``screened_df.launches`` (the screened-DF kernel).

@@ -4,7 +4,11 @@ package's engine, and its native library to its pure-Python plain version.
 Molecules: water/6-31G* (a d shell on O) in spherical and cartesian AOs,
 and the H8/STO-3G chain.  Copies against the originals agree to 1e-13
 (the same arithmetic from two builds of the same sources); the native
-library against the pure-Python routes to 1e-10.
+library against the pure-Python routes to 1e-10, also on two carbon and
+two sulfur atoms of the thiophene dimer in 6-31G, turned to an
+orientation where a primitive screen on the Schwarz diagonals lost
+quartets of 1e-8 (the JAX package's engine still screens them, so only
+the pure-Python route can hold the native one there).
 """
 
 import numpy as np
@@ -20,6 +24,7 @@ from quemb_tpu_torch.chem import integrals as tint
 from quemb_tpu_torch.chem.mole import Mole
 from quemb_tpu_torch.ops.df import make_even_tempered_auxbasis as t_etb
 from quemb_tpu_torch.utils.geometry import alkane_atoms
+from tests.test_torch_eri_rotation import ATOMS as C2S2, _rotation
 
 torch.set_num_threads(1)
 native.get_lib()  # load the engine's OpenMP runtime before capping it
@@ -38,6 +43,12 @@ MOLS = {
     "water-631gs-sph": dict(atom=WATER, basis="6-31g*", cart=False),
     "water-631gs-cart": dict(atom=WATER, basis="6-31g*", cart=True),
     "h8-sto3g": dict(atom=H8, basis="sto-3g"),
+}
+#: held to the pure-Python routes alone
+TURNED = {
+    "c2s2-631g-turned": dict(
+        atom=[(s, np.asarray(c) @ _rotation(2300000011).T) for s, c in C2S2],
+        basis="6-31g"),
 }
 COPY_TOL = 1e-13
 NATIVE_TOL = 1e-10
@@ -90,10 +101,11 @@ def test_boys_matches_original_and_plain():
     assert np.abs(out - tint.boys(10, T, native=False)).max() <= 1e-12
 
 
-@pytest.mark.parametrize("name", ["water-631gs-sph", "h8-sto3g"])
+@pytest.mark.parametrize("name", ["water-631gs-sph", "h8-sto3g",
+                                  "c2s2-631g-turned"])
 @pytest.mark.parametrize("fn", ["eri_full", "int2c2e", "int3c2e"])
 def test_native_matches_pure_python(name, fn, monkeypatch):
-    mol = Mole(**MOLS[name])
+    mol = Mole(**{**MOLS, **TURNED}[name])
     aux = t_etb(mol)
     args = {"eri_full": (mol,), "int2c2e": (aux,), "int3c2e": (mol, aux)}[fn]
     fast = getattr(tint, fn)(*args)

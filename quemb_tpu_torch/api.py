@@ -52,7 +52,7 @@ from quemb_tpu_torch.ops.eri_transform import batched_mo_eri
 from quemb_tpu_torch.solvers.dispatch import be_func
 from quemb_tpu_torch.utils.device import resolve_device
 from quemb_tpu_torch.utils.helper import timer
-from quemb_tpu_torch.utils.profiling import current, span
+from quemb_tpu_torch.utils.profiling import count, current, span
 
 logger = logging.getLogger(__name__)
 
@@ -87,6 +87,12 @@ def _memory_chunks(items: list, per_item: float, device: torch.device):
             1, int(0.5 * free // per_item))
         yield items[i : i + n]
         i += n
+
+
+def _quarter_bytes(n: int, nao: int) -> float:
+    """Bytes of the four quarter-transformed intermediates of one fragment
+    of width ``n`` against the [nao]^4 AO ERI."""
+    return 8.0 * n * (nao ** 3 + n * nao ** 2 + n * n * nao + n ** 3)
 
 
 def _cd_fragment_eris(B: torch.Tensor, TAs: list) -> list[torch.Tensor]:
@@ -281,17 +287,18 @@ class BE:
         AO_coeff_epsilon: float = 1.0e-10,
         device: torch.device | str | None = None,
     ):
-        """int_transform: "in-core" (dense AO ERI: the pivoted-Cholesky
-        factor route on CUDA, quarter transforms on the CPU; see
-        :meth:`_incore_via_cd`), "int-direct-DF" (density-fitted, the
-        whole factor against every fragment), "sparse-DF" (S_abs-screened
-        DF, the performance path: the banded or union-gather f64 tier, or
-        under ``QUEMB_TPU_CCSD_F32_ONLY=1`` the f32 tier that runs the
-        screened-DF kernel), "out-core-DF" (streamed DF factor blocks
-        under the memory budget) or "on-fly-sparse-DF" (per-fragment
-        screened (P|mu nu) recompute under the memory budget).  No DF
-        route reads the dense AO ERI, except to factorize it when
-        ``auxbasis`` is ``"cholesky[:tol]"``.
+        """int_transform: "in-core" (dense AO ERI: quarter transforms of
+        the mean field's device copy wherever they fit, the host
+        pivoted-Cholesky factor on a card where they do not, the route
+        chosen by size in :meth:`_incore_via_cd`), "int-direct-DF"
+        (density-fitted, the whole factor against every fragment),
+        "sparse-DF" (S_abs-screened DF, the performance path: the banded
+        or union-gather f64 tier, or under ``QUEMB_TPU_CCSD_F32_ONLY=1``
+        the f32 tier that runs the screened-DF kernel), "out-core-DF"
+        (streamed DF factor blocks under the memory budget) or
+        "on-fly-sparse-DF" (per-fragment screened (P|mu nu) recompute
+        under the memory budget).  No DF route reads the dense AO ERI,
+        except to factorize it when ``auxbasis`` is ``"cholesky[:tol]"``.
         ``auxbasis`` accepts an aux Mole or a spec string ("etb:<beta>",
         "cholesky[:tol]", "weigend"; see ops/df.py:resolve_auxbasis);
         default: even-tempered from the orbital basis.
@@ -397,17 +404,27 @@ class BE:
     def _incore_via_cd(self) -> bool:
         """Route the in-core ERI transform through the pivoted-CD factor?
 
-        "auto" (default): yes on CUDA (two GEMMs and a Gram product on
-        the card against a ~rank x nao^2 factor), no on the CPU (the
-        quarter transform, whose exact numbers the tests pin).  Forced
-        with QUEMB_TPU_INCORE_CD=1/0, as in the JAX package.
+        "auto" (default) chooses by size: no, the quarter transform of the
+        dense AO ERI on the device, when the ERI (nothing more when the
+        mean field already holds it there) and twice one widest
+        fragment's intermediates fit in the device's free memory; yes, the
+        host factor (rank x nao^2 on the card), only where they do not: an
+        ERI too large for the card, nao above ~230 on 80 GB.  The CPU's
+        memory counts as unbounded, so there it is always the quarter
+        transform, whose exact numbers the tests pin.  Forced with
+        QUEMB_TPU_INCORE_CD=1/0, as in the JAX package.
         """
         mode = os.environ.get("QUEMB_TPU_INCORE_CD", "auto")
         if mode in ("1", "true", "yes"):
             return True
         if mode in ("0", "false", "no"):
             return False
-        return self.device.type != "cpu"
+        nao = self.S.shape[0]
+        resident = (self.mf.device == self.device
+                    and self.mf._eri_dev is not None)
+        need = 0.0 if resident else 8.0 * nao ** 4
+        n = max(fr.nao for fr in self.fragments)
+        return need + 2.0 * _quarter_bytes(n, nao) > _free_bytes(self.device)
 
     def _df_factor(self):
         """The whitened factor [naux, nao, nao] of ``self.auxbasis`` for the
@@ -638,19 +655,20 @@ class BE:
                                      [fr.TA for fr in self.fragments])
             for fr, eri in zip(self.fragments, eris):
                 fr.eri = eri
+            count("eri.cd", len(self.fragments))
         else:
             from quemb_tpu_torch.ops.eri_transform import \
                 incore_transform_batched
 
-            eri_ao = torch.as_tensor(self.mf.get_eri(), device=dev)
+            # the mean field's device copy, which its J/K already made
+            eri_ao = (self.mf.get_eri_dev() if self.mf.device == dev
+                      else torch.as_tensor(self.mf.get_eri(), device=dev))
             nao = eri_ao.shape[0]
             buckets: dict[int, list[Fragment]] = {}
             for fr in self.fragments:
                 buckets.setdefault(fr.nao, []).append(fr)
             for n, frs_all in buckets.items():
-                # the four quarter-transformed intermediates of a fragment
-                per = 8.0 * n * (nao ** 3 + n * nao ** 2 + n * n * nao
-                                 + n ** 3)
+                per = _quarter_bytes(n, nao)
                 for frs in _memory_chunks(frs_all, per, dev):
                     TA_b = torch.as_tensor(
                         np.stack([fr.TA for fr in frs]), device=dev
@@ -658,6 +676,7 @@ class BE:
                     eri_b = incore_transform_batched(eri_ao, TA_b)
                     for fr, eri in zip(frs, eri_b):
                         fr.eri = eri
+            count("eri.direct", len(self.fragments))
 
     def _init_fragments_batched(self) -> float:
         """Fragment Hamiltonians + Fock + SCF + HF energies, bucketed.

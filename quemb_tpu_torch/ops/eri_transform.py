@@ -3,8 +3,9 @@
 JAX counterpart: ``quemb_tpu/ops/eri_transform.py``.  Four successive
 quarter transforms per fragment against the dense AO ERI, batched over a
 stack of fragments with equal embedding dimension.  This is the in-core
-route on the CPU; on CUDA the BE driver takes the Cholesky-factor route
-of :mod:`quemb_tpu_torch.ops.df`.
+route wherever the AO ERI and the intermediates fit the device; the BE
+driver takes the Cholesky-factor route of :mod:`quemb_tpu_torch.ops.df`
+only where they do not (``api.BE._incore_via_cd``).
 """
 
 from __future__ import annotations

@@ -29,8 +29,8 @@ The tracer, always on, records the stages of a BE job where they run:
 
 The spans of a job: ``fragmentate``; ``construct`` with ``mean_field``
 (``core`` with a frozen core), ``localize`` (``iao`` for IAO+PAO) and
-``BE.initialize`` (``schmidt``, ``eri`` with ``cd_factor`` on the card's
-in-core route, ``fragment_init``);
+``BE.initialize`` (``schmidt``, ``eri`` with ``cd_factor`` where the
+in-core route takes the host Cholesky factor, ``fragment_init``);
 ``BE.optimize`` or ``BE.oneshot`` with ``jacobian`` and ``eval``, each
 ``eval`` with the stages ``inputs``, ``scf``, ``mo_transform``,
 ``ccsd``, ``rdm``, ``energy`` and ``error``.  Counters: ``iters`` (loop
@@ -41,7 +41,9 @@ trips of the fragment SCF and of the CCSD), ``lanes`` and
 orbitals that fill them to the bucket's width), ``syncs``
 (each place where the host waits for the device: a read or copy between
 host and device, and each ``eigh``, which reads its error flags back on
-a card) and ``screened_df.launches`` (the screened-DF kernel).
+a card), ``eri.direct`` and ``eri.cd`` (on ``eri``: the fragments the
+in-core route transformed from the dense AO ERI and from the Cholesky
+factor) and ``screened_df.launches`` (the screened-DF kernel).
 """
 
 from __future__ import annotations
@@ -64,8 +66,9 @@ __all__ = ["KEEP", "SpanRecord", "Trace", "attached", "count", "current",
            "device_trace", "print_timings", "span", "timer",
            "total", "traces"]
 
-#: traces the recorder keeps, the newest
-KEEP = 256
+#: traces the recorder keeps, the newest: a few MB of spans, and more
+#: than the jobs of a minute of one-shot octane BE2 on a card (~400)
+KEEP = 2048
 
 _OFFSET_NS = time.time_ns() - time.perf_counter_ns()
 

@@ -4,7 +4,7 @@ recorder's bound and the mesh's shard threads.
 
 An H8 STO-3G BE2 job, ``fragmentate`` -> ``BE`` -> ``optimize(solver=
 "CCSD")``, on the CPU.  There the in-core route runs quarter transforms,
-so the card's ``cd_factor`` span is absent.
+so the ``cd_factor`` span of the host Cholesky factor is absent.
 """
 
 import threading

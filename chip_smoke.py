@@ -6,8 +6,8 @@ Drives ``quemb_tpu_torch`` (and nothing of JAX) through octane (C8H18,
 STO-3G) BE2-CCSD from the committed RHF fixture, through the
 density-fitted long chain C40H82 (STO-3G, nao 282, ``etb:6.0``, naux 3460,
 38 BE2 fragments) from integrals and a factor the port builds itself, and
-through the rest of the restricted driver (frozen core, IAO+PAO, the
-large-fragment path, full-basis RDMs, restart, SCI), relaxed densities and
+through the rest of the restricted driver (frozen core, IAO+PAO, wide
+fragments solved alone, full-basis RDMs, restart, SCI), relaxed densities and
 UBE, through the rest of the molecular surface (``be2puffin`` with
 QM/MM, autogen and graphgen, ECPs, the scanner, FCIDUMP), through
 periodic kBE2 on polyacetylene, and through octane on fragment meshes,
@@ -66,9 +66,10 @@ failure raises (non-zero exit, no ``ok`` line):
     the port's ``RHF`` (within 1e-8 Ha of the JAX package's
     -234.0731117673), IAO+PAO on STO-3G with a frozen core, one-shot
     BE2-CCSD at tolerance 1e-9: HF-in-HF < 1e-6 Ha, ``E_core`` within
-    1e-8 Ha and E_corr within 1e-7 Ha of the JAX package's; the fragments
-    of nemb 50, 51 and 54 must go through ``_solve_bucket_large``; then
-    those three once more through each path, the batched one padded to
+    1e-8 Ha and E_corr within 1e-7 Ha of the JAX package's; the plan must
+    make the fragments of nemb 50, 51 and 54, and only those, buckets of
+    their own, and the one-shot must count them as ``large``; then those
+    three once more, one bucket a fragment and as one bucket padded to
     one shape: E_corr within 1e-8 Ha, walls and peak device memory;
 12. H8 BE1 chemical-potential matching with ``solver="SCI"`` within
     1e-6 Ha of ``"FCI"``;
@@ -836,12 +837,13 @@ def octane_frozen_core(qt, sd, mf, fobj, card):
 
 def hexene_iao(qt, sd, card):
     """Phase 11: hexene 6-31G from the port's own RHF, IAO+PAO on STO-3G
-    with a frozen core, one-shot BE2-CCSD; fragments wider than the
-    batched path's limit go through the large-fragment path, and are then
-    solved once more through the batched path, padded to one shape."""
+    with a frozen core, one-shot BE2-CCSD; the plan solves the fragments
+    wider than the batched width one to a bucket, and they are then solved
+    once more as one bucket, padded to one shape."""
     from quemb_tpu_torch.chem.mole import Mole
     from quemb_tpu_torch.chem.scf import RHF
     from quemb_tpu_torch.solvers import dispatch
+    from quemb_tpu_torch.utils.profiling import total
 
     cuda = torch.device("cuda")
     mol = Mole.from_xyz_file(HEXENE_XYZ, basis="6-31g")
@@ -852,31 +854,31 @@ def hexene_iao(qt, sd, card):
                           print_frags=False)
     tol_before = os.environ.get("QUEMB_TPU_CCSD_CONV_TOL")
     os.environ["QUEMB_TPU_CCSD_CONV_TOL"] = "1e-9"
-    large_inner = dispatch._solve_bucket_large
-    large_nembs = []
-
-    def counted_large(frs, *args, **kwargs):
-        large_nembs.extend(fr.nao for fr in frs)
-        return large_inner(frs, *args, **kwargs)
-
-    dispatch._solve_bucket_large = counted_large
     launches0 = kernel_launches()
     try:
         be, init_s = wall(lambda: qt.BE(mf, fobj, lo_method="IAO",
                                         device=cuda))
+        large0 = total("large")
         _, oneshot_s = wall(lambda: be.oneshot("CCSD"))
+        large_lanes = total("large") - large0
         ecorr = be.ebe_tot - be.ebe_hf
-        # the wide fragments alone, through each path, on the same state
-        wide = [fr for fr in be.fragments
-                if fr.nao > dispatch._NEMB_BATCHED_MAX]
+        # the fragments the plan solves alone, then once more one bucket a
+        # fragment and as one padded bucket, on the same state
+        alone = [c for c in dispatch.form_merge_classes(be.fragments)
+                 if c[0][0].nao > dispatch._NEMB_BATCHED_MAX]
+        wide = [fr for c in alone for fr, _ in c]
+        split_nembs = [[fr.nao for fr, _ in c] for c in alone]
+        split_pads = [p for c in alone for _, p in c]
         so_t = max(fr.nsocc for fr in wide)
         nv_t = max(fr.nao - fr.nsocc for fr in wide)
         pads = tuple((so_t - fr.nsocc, nv_t - fr.nao + fr.nsocc)
                      for fr in wide)
         paths = {}
         for name, solve in (
-            ("large", lambda: large_inner(wide, "CCSD", True, True)),
-            ("batched", lambda: dispatch._solve_bucket_batched(
+            ("alone", lambda: [sum(e) for e in zip(*(
+                dispatch._solve_bucket([fr], "CCSD", True, True, False)
+                for fr in wide))]),
+            ("padded", lambda: dispatch._solve_bucket_batched(
                 wide, "CCSD", True, True, False, pads=pads)),
         ):
             torch.cuda.synchronize()
@@ -890,22 +892,21 @@ def hexene_iao(qt, sd, card):
                                    torch.cuda.max_memory_allocated()
                                    - base) / 1e9)
     finally:
-        dispatch._solve_bucket_large = large_inner
         if tol_before is None:
             del os.environ["QUEMB_TPU_CCSD_CONV_TOL"]
         else:
             os.environ["QUEMB_TPU_CCSD_CONV_TOL"] = tol_before
     launches = kernel_launches() - launches0
-    large_vs_batched = paths["large"]["ecorr"] - paths["batched"]["ecorr"]
+    alone_vs_padded = paths["alone"]["ecorr"] - paths["padded"]["ecorr"]
     phase(11, nao=mol.nao, e_hf=e_hf, e_hf_dev=e_hf - HEXENE_EHF_REF,
           scf_cycles=mf.cycles, scf_s=scf_s, init_s=init_s,
           fragments=[[fr.nao, fr.nsocc] for fr in be.fragments],
           e_core=be.E_core, e_core_dev=be.E_core - HEXENE_ECORE_REF,
           hf_in_hf=mf.e_tot - be.ebe_hf, oneshot_s=oneshot_s, ecorr=ecorr,
           ecorr_dev=ecorr - HEXENE_ECORR_REF,
-          large_path_fragments=len(large_nembs), large_path_nemb=large_nembs,
+          large_lanes=large_lanes, alone_nemb=split_nembs,
           wide_pads=pads, wide_paths=paths,
-          wide_large_minus_batched_ecorr=large_vs_batched,
+          wide_alone_minus_padded_ecorr=alone_vs_padded,
           kernel_launches=launches, card=card)
     if not abs(e_hf - HEXENE_EHF_REF) < 1e-8:
         raise AssertionError(f"hexene RHF {e_hf:.10f}")
@@ -915,11 +916,14 @@ def hexene_iao(qt, sd, card):
         raise AssertionError(f"hexene E_core {be.E_core:.10f}")
     if not abs(ecorr - HEXENE_ECORR_REF) < 1e-7:
         raise AssertionError(f"hexene E_corr {ecorr:.10f}")
-    if sorted(large_nembs) != [50, 51, 54]:
-        raise AssertionError(f"large-fragment path took {large_nembs}")
-    if not abs(large_vs_batched) < 1e-8:
+    if (sorted(split_nembs) != [[50], [51], [54]]
+            or split_pads != [(0, 0)] * 3 or large_lanes != 3):
         raise AssertionError(
-            f"large - batched E_corr {large_vs_batched:.3e} Ha"
+            f"solved alone: {split_nembs}, pads {split_pads}, counted"
+            f" {large_lanes} large lanes")
+    if not abs(alone_vs_padded) < 1e-8:
+        raise AssertionError(
+            f"alone - padded E_corr {alone_vs_padded:.3e} Ha"
         )
     return launches
 
@@ -1015,9 +1019,8 @@ def octane_relaxed(qt, sd, mf, fobj, etot_phase6, card):
     be = qt.BE(mf, fobj, device=cuda)
     with _env(QUEMB_TPU_CCSD_CONV_TOL="1e-9"):
         for name, spinorb in (("closed_shell", {}), ("spin_orbital", dict(
-                # the JAX package needs the merge switch off beside it;
                 # the port plans no merged buckets under the switch
-                QUEMB_TPU_CCSD_SPINORB="1", QUEMB_TPU_MERGE_BUCKETS="0"))):
+                QUEMB_TPU_CCSD_SPINORB="1"))):
             launches0 = kernel_launches()
             with _env(**spinorb):
                 _, t = wall(lambda: be.oneshot("CCSD"))

@@ -21,9 +21,10 @@ Differences from the JAX module, none of them in what is computed:
 - the bordered DIIS system is solved by ``torch.linalg.solve_ex`` on the
   same masked, scale-normalized system where the JAX module runs an
   unrolled pivoted elimination (a TPU-safe form inside a while loop);
-- ``so_blocks_jax`` is :func:`so_blocks`, and ``_so_blocks_host`` gathers
-  on the device of its input: the JAX function builds the large path's
-  blocks on the host to spare a 16 GB chip's memory;
+- ``so_blocks_jax`` is :func:`so_blocks`, which builds every bucket's
+  blocks, one fragment wide or many; the JAX module's gather build of a
+  wide fragment's blocks on the host, which spares a 16 GB chip's memory,
+  is not ported;
 - mixed f32-then-f64 iteration (``_use_mixed``) is not ported: the f64
   path runs plain f64; the f32-only capacity tier is.
 """
@@ -46,26 +47,6 @@ DIIS_SPACE = 6
 
 
 # --------------------------------------------------- spin-orbital machinery
-def _spin_antisym(eri_mo, nmo: int):
-    """Antisymmetrized spin-orbital integrals <pq||rs> (physicist notation)
-    from chemist MO integrals [nmo]^4.
-
-    Spin layout: [0, nmo) alpha, [nmo, 2 nmo) beta.
-    """
-    phys = eri_mo.permute(0, 2, 1, 3)  # <pq|rs>
-    n = 2 * nmo
-    idx = torch.arange(n, device=eri_mo.device)
-    spin, sp = idx // nmo, idx % nmo
-    same = (spin[:, None] == spin[None, :]).to(eri_mo.dtype)
-    g = (
-        phys[sp[:, None, None, None], sp[None, :, None, None],
-             sp[None, None, :, None], sp[None, None, None, :]]
-        * same[:, None, :, None]
-        * same[None, :, None, :]
-    )
-    return g - g.permute(0, 1, 3, 2)
-
-
 def _ccsd_update(t1, t2, moe_o, moe_v, oovv, ovvv, ooov, oooo, vvvv,
                  ovov, ovvo, ovoo, vvvo, f_oo_off=None, f_ov=None,
                  f_vv_off=None):
@@ -195,39 +176,6 @@ def _diis_coeffs(B: torch.Tensor, nvalid: torch.Tensor) -> torch.Tensor:
     rhs[:, m] = -1.0
     x, _ = torch.linalg.solve_ex(Bfull, rhs)
     return x[:, :m]
-
-
-def _so_blocks_host(eri_mo, moe, nsocc: int):
-    """Antisymmetrized spin-orbital integral blocks of one fragment, built
-    by index gathers (occupied first: [alpha occ, beta occ | alpha vir,
-    beta vir]) and fused into the 2-D layouts of
-    :mod:`quemb_tpu_torch.solvers.ccsd_mat`, where ``eri_mo`` [nmo]^4 lies.
-
-    Returns (fused blocks with a batch axis of one, moe_o [1, no], moe_v
-    [1, nv]).
-    """
-    nmo = eri_mo.shape[0]
-    no = 2 * nsocc
-    n = 2 * nmo
-    dev = eri_mo.device
-    g = _spin_antisym(eri_mo, nmo)
-    occ = list(range(nsocc)) + list(range(nmo, nmo + nsocc))
-    occ_set = set(occ)
-    vir = [p for p in range(n) if p not in occ_set]
-    order = torch.tensor(occ + vir, device=dev)
-    for axis in range(4):
-        g = g.index_select(axis, order)
-    moe_so = torch.cat([moe, moe]).index_select(0, order)
-    o = slice(0, no)
-    v = slice(no, n)
-    blocks = dict(
-        oovv=g[o, o, v, v], ovvv=g[o, v, v, v], ooov=g[o, o, o, v],
-        oooo=g[o, o, o, o], vvvv=g[v, v, v, v], ovov=g[o, v, o, v],
-        ovvo=g[o, v, v, o], ovoo=g[o, v, o, o], vvvo=g[v, v, v, o],
-    )
-    blocks = {k: b[None] for k, b in blocks.items()}
-    return (fused_blocks(blocks, no, n - no), moe_so[None, :no],
-            moe_so[None, no:])
 
 
 def _diis_loop(step, t1_0, T2p_0, conv_tol, max_cycle):
@@ -388,7 +336,7 @@ def so_blocks(eri_mo, moe, nsocc: int):
 
     eri_mo [nf, nmo]^4 chemist, moe [nf, nmo].  Spin layout per axis:
     (spin, spatial) major -- occupied indices are [alpha occ, beta occ],
-    matching :func:`_so_blocks_host`'s ordering.  Returns (fused blocks,
+    the ordering of the JAX module's gather build.  Returns (fused blocks,
     moe_o [nf, no], moe_v [nf, nv]).
     """
     nmo = eri_mo.shape[1]
@@ -437,26 +385,6 @@ def _ccsd_from_mo_batched(eri_mo_b, moe_b, nsocc: int, max_cycle: int = 150,
         return t1f.double(), t2f.double(), it, delta
     fb, mo, mv = so_blocks(eri_mo_b, moe_b, nsocc)
     return _ccsd_iterate(mo, mv, fb, max_cycle=max_cycle)
-
-
-def ccsd_so_large(eri_mo, moe, nsocc: int, max_cycle: int = 150):
-    """Large-fragment spin-orbital CCSD of one fragment: blocks by index
-    gathers (:func:`_so_blocks_host`), then the iteration, on the device
-    of ``eri_mo``.  Honors QUEMB_TPU_CCSD_F32_ONLY.  Returns spatial (t1,
-    t2, n_iter, delta)."""
-    fb, mo, mv = _so_blocks_host(eri_mo, moe, nsocc)
-    if _f32_only():
-        fb = {k: a.float() for k, a in fb.items()}
-        mo, mv = mo.float(), mv.float()
-        conv = _f32_tol()
-    else:
-        conv = _default_conv_tol()
-    t1f, t2f, it, delta = _ccsd_iterate(mo, mv, fb, conv_tol=conv,
-                                        max_cycle=max_cycle)
-    t1_sp, t2_sp = _split_spatial(t1f[0].double(), t2f[0].double(), nsocc,
-                                  eri_mo.shape[0])
-    count("syncs", 2)
-    return t1_sp, t2_sp, int(it[0]), float(delta[0])
 
 
 def _ccsd_so_batched(eri_mo_b, moe_b, nsocc: int):

@@ -1,12 +1,11 @@
 """Per-objective-evaluation fragment solve pass + error vector.
 
 JAX counterpart: ``quemb_tpu/solvers/dispatch.py``.  Fragments are grouped
-into buckets (:func:`form_merge_classes`: merged and zero-padded for CCSD
-and MP2, one bucket per true shape for the CI solvers) and
-:func:`_solve_bucket` routes each one, as the JAX function does: a bucket
-wider than ``_NEMB_BATCHED_MAX`` on a card, solved by CCSD or MP2, goes
-fragment by fragment through :func:`_solve_bucket_large`; every other
-bucket runs :func:`_solve_bucket_batched` with the fragment axis as a
+into buckets by :func:`form_merge_classes` (merged and zero-padded for CCSD
+and MP2, one bucket per true shape for the CI solvers; on a card a CCSD or
+MP2 fragment wider than ``_NEMB_BATCHED_MAX`` is a bucket of its own, where
+the JAX package sends it down a fragment-at-a-time path), and
+:func:`_solve_bucket_batched` runs every bucket with the fragment axis as a
 leading batch dimension: batched fragment SCF -> MO-ERI transform -> the
 solver (closed-shell CCSD, or the spin-orbital kernel under
 ``QUEMB_TPU_CCSD_SPINORB=1``, or MP2 on the device; relaxed CCSD densities
@@ -16,13 +15,14 @@ module keeps a fused and a staged form of this pass because one is a
 single XLA program; eager torch has one form.
 
 Under a fragment mesh (:mod:`quemb_tpu_torch.parallel.mesh`),
-:func:`_solve_bucket` splits a batched bucket's fragments into
+:func:`_solve_bucket` splits a bucket of several fragments into
 contiguous chunks, one per shard, and runs :func:`_solve_bucket_batched`
 on each chunk on its shard's device, one thread per shard; the chunks'
-energy sums are added in shard order.  A bucket on the large-fragment
-path is not sharded.  The per-fragment tensors (``rdm1__``, ``rdm2__``,
-``t1``, ``t2``) stay on their shard's device; the host arrays
-(``_rdm1``, ``mo_coeffs``, ``ebe``) are what the error vector reads.
+energy sums are added in shard order.  A bucket of one fragment is not
+sharded: it runs where its ERI lies.  The per-fragment tensors
+(``rdm1__``, ``rdm2__``, ``t1``, ``t2``) stay on their shard's device; the
+host arrays (``_rdm1``, ``mo_coeffs``, ``ebe``) are what the error vector
+reads.
 """
 
 from __future__ import annotations
@@ -40,19 +40,18 @@ from quemb_tpu_torch.ops.eri_transform import \
 from quemb_tpu_torch.parallel.mesh import get_mesh, run_on_shards, \
     shard_ranges
 from quemb_tpu_torch.solvers.ccsd import _ccsd_so_batched, \
-    _default_conv_tol, _f32_only, ccsd_so_large
+    _default_conv_tol, _f32_only
 from quemb_tpu_torch.solvers.ccsd_relaxed import ccsd_relaxed_rdms
 from quemb_tpu_torch.solvers.dmrg import solve_dmrg
 from quemb_tpu_torch.solvers.fci import remove_mf_part, solve_fci
 from quemb_tpu_torch.solvers.mp2 import _occ_projector, \
     add_mean_field_rdm2, make_rdm1_mp2, make_rdm2_mp2, mp2_amplitudes
-from quemb_tpu_torch.solvers.rccsd import _rccsd_from_mo_batched, \
-    rccsd_large
+from quemb_tpu_torch.solvers.rccsd import _rccsd_from_mo_batched
 from quemb_tpu_torch.solvers.sci import solve_sci
 from quemb_tpu_torch.utils.profiling import count, span
 
-#: largest padded embedding dimension of the batched bucket path on a
-#: card; wider CCSD and MP2 buckets go through the fragment-at-a-time path
+#: largest padded embedding dimension of a bucket of several CCSD or MP2
+#: fragments on a card; the plan makes each wider one a bucket of its own
 #: (the JAX package's value)
 _NEMB_BATCHED_MAX = 48
 
@@ -210,11 +209,16 @@ def _bucket_dev(frs: list[Fragment], pads: tuple[tuple[int, int], ...],
         ]), device=device)
 
     count("syncs", 5)  # the five host stacks below
-    out = dict(
-        eri=torch.stack([
+    if len(frs) == 1 and not any(pads[0]):
+        # a lone fragment's ERI as it lies: no second copy on the card
+        eri = frs[0].eri.to(device)[None]
+    else:
+        eri = torch.stack([
             _pad_frag_op(fr.eri.to(device), po, pv)
             for fr, (po, pv) in zip(frs, pads)
-        ]),
+        ])
+    out = dict(
+        eri=eri,
         fock=stack("fock", diag_occ=-_PAD_SHIFT, diag_vir=_PAD_SHIFT),
         dm0=stack("dm0", diag_occ=2.0),
         h1=stack("h1"),
@@ -260,11 +264,12 @@ def _check_solver(solver: str) -> None:
         raise NotImplementedError(f"Solver {solver} not implemented")
 
 
-def _takes_large_path(nemb: int, device: torch.device, solver: str,
-                      relax_density: bool = False) -> bool:
-    """The JAX package's routing: a bucket wider than
-    ``_NEMB_BATCHED_MAX`` solved by CCSD (unrelaxed) or MP2 goes fragment
-    by fragment on a card; the CPU always runs the batched path."""
+def _solved_alone(nemb: int, device: torch.device, solver: str,
+                  relax_density: bool = False) -> bool:
+    """Whether the plan makes each fragment of a class of padded width
+    ``nemb`` a bucket of its own: on a card, for CCSD (unrelaxed) or MP2
+    wider than ``_NEMB_BATCHED_MAX`` (the JAX package's routing to its
+    fragment-at-a-time path).  The CPU batches every class."""
     return (
         nemb > _NEMB_BATCHED_MAX
         and device.type != "cpu"
@@ -275,20 +280,16 @@ def _takes_large_path(nemb: int, device: torch.device, solver: str,
 
 def _solve_bucket(frs, solver, eeval, use_cumulant, relax_density,
                   pads=None):
-    """One bucket of :func:`be_func`, through the large-fragment or the
-    batched path (:func:`_takes_large_path`); returns what they return.
-    Under a fragment mesh a batched bucket is split into one chunk per
-    shard, each solved on its shard's device on a thread of its own, and
-    the chunks' ``[e1, e2, ec]`` are added in shard order."""
+    """One bucket of :func:`be_func` through :func:`_solve_bucket_batched`;
+    returns what it returns.  Under a fragment mesh a bucket of several
+    fragments is split into one chunk per shard, each solved on its
+    shard's device on a thread of its own, and the chunks' ``[e1, e2,
+    ec]`` are added in shard order."""
     _check_solver(solver)
     if pads is None:
         pads = ((0, 0),) * len(frs)
-    nemb = frs[0].nao + pads[0][0] + pads[0][1]
-    if _takes_large_path(nemb, frs[0].eri.device, solver, relax_density):
-        # merge classes wider than _NEMB_BATCHED_MAX hold no pads
-        return _solve_bucket_large(frs, solver, eeval, use_cumulant)
     mesh = get_mesh()
-    if mesh is None:
+    if mesh is None or len(frs) == 1:
         return _solve_bucket_batched(frs, solver, eeval, use_cumulant,
                                      relax_density, pads=pads)
     shards = shard_ranges(len(frs), mesh)
@@ -300,93 +301,6 @@ def _solve_bucket(frs, solver, eeval, use_cumulant, relax_density,
         [r for r, _ in shards], [d for _, d in shards],
     )
     return [sum(e) for e in zip(*rets)] if eeval else None
-
-
-def _solve_bucket_large(frs, solver, eeval, use_cumulant):
-    """Fragment-at-a-time pipeline for large embedding spaces.
-
-    One fragment at its true shape goes end to end on its ERI's device:
-    fragment SCF -> MO transform -> CCSD (:func:`rccsd_large`, or
-    :func:`ccsd_so_large` under ``QUEMB_TPU_CCSD_SPINORB``) or MP2
-    amplitudes -> the unrelaxed RDMs -> energy rows.  Only its results
-    are kept (orbitals, amplitudes, RDMs, the embedding-basis 1-RDM on the
-    host), so the next fragment's working set reuses the memory of this
-    one's.  As in the JAX function, MP2 goes through the CCSD form of the
-    RDMs with t1 = 0, not the MP2 RDMs of the batched path.  Returns the
-    summed ``[e1, e2, ec]`` with ``eeval``, else None.
-    """
-    _check_solver(solver)
-    if solver not in ("CCSD", "MP2"):
-        raise NotImplementedError(
-            f"large-fragment path supports CCSD/MP2, not {solver}"
-        )
-    tot = [0.0, 0.0, 0.0]
-    for fr in frs:
-        nsocc = fr.nsocc
-        eri = fr.eri[None]
-        device = eri.device
-        with span("inputs"):
-            h, dm0 = (
-                torch.as_tensor(a, device=device)[None]
-                for a in (fr.fock + fr.heff, fr.dm0)
-            )
-            count("syncs", 2)
-        with span("scf"):
-            moe, C, _, _ = rhf_orthonormal(h, eri, nsocc, dm0)
-        with span("mo_transform"):
-            eri_mo = _batched_mo_eri(eri, C)
-        if solver == "CCSD":
-            with span("ccsd"):
-                large = ccsd_so_large if _spinorb() else rccsd_large
-                t1, t2, it, delta = large(eri_mo[0], moe[0], nsocc)
-                count("lanes")
-                count("large")
-                count("lane_iters", it)
-            if not _f32_only() and delta > 10 * _default_conv_tol():
-                warnings.warn(
-                    f"CCSD fragment not fully converged: max|dt| = "
-                    f"{delta:.2e}"
-                )
-        else:
-            t2 = mp2_amplitudes(eri_mo[0], moe[0], nsocc)[0]
-            t1 = t2.new_zeros((nsocc, fr.nao - nsocc))
-        del eri_mo
-        with span("rdm"):
-            rdm1, rdm2 = _rdm12_urlx_batched(t1[None], t2[None],
-                                             with_dm1=not use_cumulant)
-            fr.t1, fr.t2 = t1, t2  # device
-            fr.mo_coeffs = C[0].cpu().numpy()
-            fr.mo_energy = moe[0].cpu().numpy()
-            fr._rdm1 = _batched_rdm1_emb(C, rdm1)[0].cpu().numpy()
-            count("syncs", 3)
-            fr.rdm1__ = rdm1[0]  # device
-        if not eeval:
-            continue
-        fr.rdm2__ = rdm2[0]  # device
-        with span("energy"):
-            occ_mask = torch.zeros((1, fr.nao), dtype=C.dtype,
-                                   device=device)
-            occ_mask[0, :nsocc] = 1.0
-            center_w = np.zeros((1, fr.nao))
-            w, idx = fr.weight_and_relAO_per_center
-            center_w[0, list(idx)] = w
-            center_w = torch.as_tensor(center_w, device=device)
-            h1 = torch.as_tensor(fr.h1, device=device)[None]
-            veff = fr.veff0 if use_cumulant else fr.veff
-            veff = torch.as_tensor(veff, device=device)[None]
-            if use_cumulant:
-                rows = _batched_energy_rows(
-                    C, h1, veff, eri, rdm1, rdm2, occ_mask, center_w,
-                )
-            else:
-                rows = _batched_energy_rows_nc(
-                    C, h1, veff, eri, rdm1, rdm2, center_w,
-                )
-            e = [float(x[0]) for x in rows]
-            count("syncs", 6)  # three copies up, three reads
-        fr.ebe = sum(e)
-        tot = [a + b for a, b in zip(tot, e)]
-    return tot if eeval else None
 
 
 def _solve_bucket_batched(frs, solver, eeval, use_cumulant, relax_density,
@@ -402,19 +316,21 @@ def _solve_bucket_batched(frs, solver, eeval, use_cumulant, relax_density,
     the relaxed densities one fragment at a time) and ``"MP2"`` on the
     device; ``"FCI"``, ``"SCI"`` and ``"DMRG"`` with the SCF and the MO
     transform on the device and the CI on the host; cumulant or
-    non-cumulant energies.  Any width runs here (the routing of wide
-    buckets is :func:`_solve_bucket`'s).  The bucket runs on ``device``
-    (default: the device of its ERIs).  Returns the bucket's summed
-    ``[e1, e2, ec]`` with ``eeval``, else None; per-fragment results are
-    written back onto the fragments.
+    non-cumulant energies.  Any width runs here; a bucket of one fragment
+    without pads works on that fragment's ERI as it lies.  The bucket runs
+    on ``device`` (default: the device of its ERIs).  Returns the bucket's
+    summed ``[e1, e2, ec]`` with ``eeval``, else None; per-fragment
+    results are written back onto the fragments.
     """
     _check_solver(solver)
     if pads is None:
         pads = ((0, 0),) * len(frs)
     padded = any(po or pv for po, pv in pads)
-    if padded and (relax_density or solver not in ("CCSD", "MP2")):
+    if padded and (relax_density or solver not in ("CCSD", "MP2")
+                   or (solver == "CCSD" and _spinorb())):
         raise ValueError(
-            "bucket-merge padding supports batched CCSD/MP2 only"
+            "bucket-merge padding supports batched CCSD/MP2 only, unrelaxed"
+            " and with the closed-shell CCSD kernel"
         )
     nsocc = frs[0].nsocc + pads[0][0]
     nemb = frs[0].nao + pads[0][0] + pads[0][1]
@@ -449,12 +365,6 @@ def _solve_bucket_batched(frs, solver, eeval, use_cumulant, relax_density,
         with span("mo_transform"):
             eri_mo_b = _batched_mo_eri(eri_b, C_b)
         if _spinorb():
-            if padded:
-                raise ValueError(
-                    "bucket-merge padding is not supported with the legacy"
-                    " spin-orbital kernel (QUEMB_TPU_CCSD_SPINORB); set"
-                    " QUEMB_TPU_MERGE_BUCKETS=0"
-                )
             amplitudes = _ccsd_so_batched
         else:
             def amplitudes(eri_mo_b, moe_b, nsocc):
@@ -462,16 +372,21 @@ def _solve_bucket_batched(frs, solver, eeval, use_cumulant, relax_density,
                                               f32_only=f32_only)
         with span("ccsd"):
             t1_b, t2_b, it, delta = amplitudes(eri_mo_b, moe_b, nsocc)
+            del eri_mo_b
             # one read: the lanes' last steps and their iteration counts
             host = torch.cat([delta, it.to(delta.dtype)]).cpu().numpy()
             count("syncs")
             delta_max = float(host[:len(frs)].max())
             count("lanes", len(frs))
             count("lane_iters", int(host[len(frs):].sum()))
-            # the lanes' true widths, and the pads that fill each to nemb
-            orbs = sum(fr.nao for fr in frs)
-            count("orbs", orbs)
-            count("pad_orbs", nemb * len(frs) - orbs)
+            if nemb > _NEMB_BATCHED_MAX:
+                # too wide to batch: on a card the plan solved it alone
+                count("large", len(frs))
+            else:
+                # the lanes' true widths, and the pads that fill each
+                orbs = sum(fr.nao for fr in frs)
+                count("orbs", orbs)
+                count("pad_orbs", nemb * len(frs) - orbs)
         if not f32_only and delta_max > 10 * _default_conv_tol():
             warnings.warn(
                 f"CCSD bucket not fully converged: "
@@ -570,55 +485,59 @@ def form_merge_classes(
     solver: str = "CCSD",
     relax_density: bool = False,
 ) -> list[list[tuple[Fragment, tuple[int, int]]]]:
-    """Group fragments into merged padded buckets (the production plan).
+    """Group fragments into the buckets of an objective evaluation (the
+    production plan); :func:`_solved_alone` is decided here and nowhere
+    else.
 
     Merges near-same-shaped buckets by zero-padding occupied/virtual
     embedding dimensions to a shared (nsocc, nvir) target (exact -- see
     ``_PAD_SHIFT``): octane BE2's (41,21)x4 + (40,22)x2 buckets become ONE
     (22,20) bucket.  Each class is a list of ``(fragment, (pad_occ,
-    pad_vir))`` pairs.  Solvers other than CCSD and MP2 (and relaxed
-    densities) get the unmerged plan, one class per true (nao, nsocc)
-    shape with no pads.  A class wider than ``_NEMB_BATCHED_MAX`` holds one
-    true shape and no pads.  The JAX function's ``QUEMB_TPU_MERGE_BUCKETS``
-    switch is not carried: CCSD and MP2 always merge, except under the
-    spin-orbital kernel, which refuses padding (``QUEMB_TPU_CCSD_SPINORB``;
-    the JAX package needs ``QUEMB_TPU_MERGE_BUCKETS=0`` beside it).
+    pad_vir))`` pairs.  Solvers other than CCSD and MP2, relaxed densities
+    and the spin-orbital kernel (``QUEMB_TPU_CCSD_SPINORB``, which takes no
+    pads) get the unmerged plan, one class per true (nao, nsocc) shape
+    with no pads.  No merge is wider than ``_NEMB_BATCHED_MAX``, so a wider
+    class holds one true shape and no pads; where :func:`_solved_alone`
+    says so (on a card), each of its fragments is a class of its own.  The
+    JAX function's switch that turns merging off is not carried.
     """
     buckets: dict[tuple[int, int], list[Fragment]] = {}
     for fr in fragments:
         buckets.setdefault((fr.nao, fr.nsocc), []).append(fr)
+    classes: list[list[tuple[int, int]]] = []
     if (solver not in ("CCSD", "MP2") or relax_density
             or (solver == "CCSD" and _spinorb())):
-        return [[(fr, (0, 0)) for fr in frs] for frs in buckets.values()]
+        classes = [[key] for key in buckets]
+    else:
+        # greedy: largest-nao key seeds a class; a key joins if the class
+        # target it induces keeps every member's padding <= 25% and the
+        # padded width stays within _NEMB_BATCHED_MAX
+        for key in sorted(buckets, reverse=True):
+            for cls in classes:
+                cand = cls + [key]
+                so_t = max(k[1] for k in cand)
+                nv_t = max(k[0] - k[1] for k in cand)
+                nemb_t = so_t + nv_t
+                if nemb_t <= _NEMB_BATCHED_MAX and all(
+                    (nemb_t - k[0]) / nemb_t <= 0.25 for k in cand
+                ):
+                    cls.append(key)
+                    break
+            else:
+                classes.append([key])
 
-    # greedy: largest-nao key seeds a class; a key joins if the class
-    # target it induces keeps every member's padding <= 25% and the
-    # padded shape stays on the batched path (nemb <= 48)
-    classes: list[list[tuple[int, int]]] = []
-    for key in sorted(buckets, reverse=True):
-        for cls in classes:
-            cand = cls + [key]
-            so_t = max(k[1] for k in cand)
-            nv_t = max(k[0] - k[1] for k in cand)
-            nemb_t = so_t + nv_t
-            if nemb_t <= _NEMB_BATCHED_MAX and all(
-                (nemb_t - k[0]) / nemb_t <= 0.25 for k in cand
-            ):
-                cls.append(key)
-                break
-        else:
-            classes.append([key])
-
-    merge_classes: list[list[tuple[Fragment, tuple[int, int]]]] = []
+    plan: list[list[tuple[Fragment, tuple[int, int]]]] = []
     for cls in classes:
         so_t = max(k[1] for k in cls)
         nv_t = max(k[0] - k[1] for k in cls)
-        pairs = []
-        for nao, nsocc in cls:
-            po, pv = so_t - nsocc, nv_t - (nao - nsocc)
-            pairs.extend((fr, (po, pv)) for fr in buckets[(nao, nsocc)])
-        merge_classes.append(pairs)
-    return merge_classes
+        pairs = [(fr, (so_t - nsocc, nv_t - (nao - nsocc)))
+                 for nao, nsocc in cls for fr in buckets[(nao, nsocc)]]
+        if _solved_alone(so_t + nv_t, pairs[0][0].eri.device, solver,
+                         relax_density):
+            plan.extend([pair] for pair in pairs)
+        else:
+            plan.append(pairs)
+    return plan
 
 
 @span("eval")

@@ -2,9 +2,10 @@
 
 JAX counterpart: ``quemb_tpu/solvers/rccsd.py`` (``_rdiis_stage``,
 ``_rccsd_iterate``, ``_rccsd_from_mo_batched``, ``rccsd_batched``,
-``rccsd_large``, ``solve_rccsd``).  The DIIS-accelerated loop drives
+``solve_rccsd``).  The DIIS-accelerated loop drives
 :func:`quemb_tpu_torch.solvers.rccsd_mat.rccsd_update_mat` over a bucket
-held as a leading batch dimension (one fragment for ``rccsd_large``).  Where the JAX module
+held as a leading batch dimension, which may be one fragment: the JAX
+module's large-fragment entry is this loop at batch 1.  Where the JAX module
 vmaps a ``lax.while_loop``, this one runs a Python loop until every lane
 has converged, and freezes a converged lane's state as ``vmap`` does, so
 that no lane drifts while the others iterate.  Each iteration reads one
@@ -25,7 +26,6 @@ from quemb_tpu_torch.solvers.ccsd import _default_conv_tol, _diis_loop, \
     _f32_only, _f32_tol
 from quemb_tpu_torch.solvers.rccsd_mat import rccsd_fused_blocks, \
     rccsd_update_mat
-from quemb_tpu_torch.utils.profiling import count
 
 #: iteration cap of the closed-shell CCSD (the JAX functions' default
 #: ``max_cycle``); a caller that needs more sets it and restores it
@@ -99,21 +99,6 @@ def rccsd_batched(eri_mo_b, moe_b, nsocc: int):
         torch.as_tensor(eri_mo_b, dtype=torch.float64),
         torch.as_tensor(moe_b, dtype=torch.float64),
     )
-
-
-def rccsd_large(eri_mo, moe, nsocc: int):
-    """Closed-shell CCSD of one large fragment, no batch axis.
-
-    eri_mo [nmo]^4 chemist and moe [nmo], f64 tensors on the device that
-    runs it.  Returns (t1 [no, nv], t2 [no, no, nv, nv] there, n_iter,
-    delta); the precision follows :func:`_rccsd_from_mo_batched` under
-    ``QUEMB_TPU_CCSD_F32_ONLY``.
-    """
-    t1, t2, it, delta = _rccsd_from_mo_batched(
-        eri_mo[None], moe[None], nsocc, f32_only=_f32_only()
-    )
-    count("syncs", 2)
-    return t1[0], t2[0], int(it[0]), float(delta[0])
 
 
 def solve_rccsd(eri_mo, moe, nsocc: int, conv_tol=1e-9, max_cycle=150):

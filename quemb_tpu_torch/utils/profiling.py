@@ -36,9 +36,10 @@ in-core route takes the host Cholesky factor, ``fragment_init``);
 ``ccsd``, ``rdm``, ``energy`` and ``error``.  Counters: ``iters`` (loop
 trips of the fragment SCF and of the CCSD), ``lanes`` and
 ``lane_iters`` (CCSD lanes and their summed iteration counts), ``large``
-(the lanes solved on the large-fragment path), ``orbs`` and ``pad_orbs``
-(a batched CCSD's true widths, summed over its lanes, and the pad
-orbitals that fill them to the bucket's width), ``syncs``
+(the lanes of a CCSD bucket wider than the batched width: on a card, the
+fragments that the plan solves one to a bucket), ``orbs`` and
+``pad_orbs`` (the other buckets' true widths, summed over their lanes,
+and the pad orbitals that fill them to the bucket's width), ``syncs``
 (each place where the host waits for the device: a read or copy between
 host and device, and each ``eigh``, which reads its error flags back on
 a card), ``eri.direct`` and ``eri.cd`` (on ``eri``: the fragments the

@@ -161,7 +161,8 @@ def test_merge_plan_matches_jax(shapes):
     from quemb_tpu.solvers.dispatch import form_merge_classes as jax_plan
     from quemb_tpu_torch.solvers.dispatch import form_merge_classes
 
-    frs = [SimpleNamespace(nao=n, nsocc=o) for n, o in shapes]
+    cpu = SimpleNamespace(device=torch.device("cpu"))
+    frs = [SimpleNamespace(nao=n, nsocc=o, eri=cpu) for n, o in shapes]
 
     def plan(classes):
         return [[(frs.index(fr), p) for fr, p in c] for c in classes]

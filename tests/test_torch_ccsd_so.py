@@ -5,13 +5,13 @@ iteration and routing against the JAX package's.
   blocks, with and without the off-diagonal Fock blocks: 1e-12; the plain
   einsum update ``_ccsd_update`` against its JAX original and against the
   fused form: 1e-12;
-- the gather-free block build ``so_blocks`` and the gather build
-  ``_so_blocks_host`` against ``so_blocks_jax`` / ``_so_blocks_host``:
-  1e-12;
+- the gather-free block build ``so_blocks`` against the JAX package's
+  ``so_blocks_jax`` and its gather build ``_so_blocks_host``: 1e-12;
 - ``solve_ccsd_so`` on an H8 BE2 fragment against the JAX function and
-  against the port's closed-shell kernel: E_corr 1e-9; ``ccsd_so_large``
-  and ``ccsd_so_batched`` on the same fragment, and the f32-only tier at
-  1e-5;
+  against the port's closed-shell kernel at batch 1
+  (``_rccsd_from_mo_batched``): E_corr 1e-9; ``_ccsd_so_batched`` at
+  batch 1 and ``ccsd_so_batched`` on the same fragment, and the f32-only
+  tier at 1e-5;
 - the unrelaxed RDMs and ``solve_ccsd`` against the JAX functions: 1e-9;
 - ``be_func`` on H8 BE2 under ``QUEMB_TPU_CCSD_SPINORB=1`` against the
   JAX package's: energies and error vector 1e-8, cumulant and not.
@@ -139,12 +139,10 @@ def test_block_builds_match_jax(nmo, nsocc):
                                            jnp.asarray(moe), nsocc)
     fb_t, mo_t, mv_t = tccsd.so_blocks(_t(eri), _t(moe), nsocc)
     fh_j, mho_j, mhv_j = jccsd._so_blocks_host(eri, moe, nsocc)
-    fh_t, mho_t, mhv_t = tccsd._so_blocks_host(torch.as_tensor(eri),
-                                               torch.as_tensor(moe), nsocc)
     for k, a in zip(tmat.BLOCK_KEYS, fb_j):
         assert np.abs(fb_t[k][0].numpy() - np.asarray(a)).max() < 1e-12
-        assert np.abs(fh_t[k][0].numpy() - fh_j[k]).max() < 1e-12
-    for a, b in ((mo_t, mo_j), (mv_t, mv_j), (mho_t, mho_j), (mhv_t, mhv_j)):
+        assert np.abs(fb_t[k][0].numpy() - fh_j[k]).max() < 1e-12
+    for a, b in ((mo_t, mo_j), (mv_t, mv_j), (mo_t, mho_j), (mv_t, mhv_j)):
         assert np.abs(a[0].numpy() - np.asarray(b)).max() < 1e-15
 
 
@@ -183,19 +181,21 @@ def test_solve_ccsd_so_matches_jax_and_rccsd(h8_fragment):
     jt1, jt2, je = jccsd.solve_ccsd_so(eri_mo.numpy(), moe.numpy(), ns)
     assert abs(e - je) < 1e-9
     assert e < -1e-3
-    rt1, rt2, _, delta = rccsd.rccsd_large(eri_mo, moe, ns)
-    assert delta <= 1e-9
+    rt1, rt2, _, delta = rccsd._rccsd_from_mo_batched(eri_mo[None],
+                                                      moe[None], ns)
+    assert float(delta[0]) <= 1e-9
     ovov = eri_mo[:ns, ns:, :ns, ns:]
-    tau = rt2 + torch.einsum("ia,jb->ijab", rt1, rt1)
+    tau = rt2[0] + torch.einsum("ia,jb->ijab", rt1[0], rt1[0])
     e_r = float(torch.einsum("ijab,iajb->", tau, 2.0 * ovov)
                 - torch.einsum("ijab,ibja->", tau, ovov))
     assert abs(e - e_r) < 1e-9
-    # the large path's gather blocks and the batched path give the same
-    lt1, lt2, _, _ = tccsd.ccsd_so_large(eri_mo, moe, ns)
+    # a bucket of one, as the plan solves a wide fragment, and the
+    # mesh-sharded entry give the same
+    lt1, lt2, _, _ = tccsd._ccsd_so_batched(eri_mo[None], moe[None], ns)
     bt1, bt2, _, _ = tccsd.ccsd_so_batched(eri_mo[None], moe[None], ns)
-    for a in (lt1, bt1[0]):
+    for a in (lt1[0], bt1[0]):
         assert (a - t1).abs().max() < 1e-9
-    for a in (lt2, bt2[0]):
+    for a in (lt2[0], bt2[0]):
         assert (a - t2).abs().max() < 1e-9
 
 
@@ -205,11 +205,12 @@ def test_f32_tier_matches_f64(h8_fragment, monkeypatch):
     t1, t2, _, _ = tccsd.ccsd_so_batched(eri_mo[None], moe[None], ns)
     monkeypatch.setenv("QUEMB_TPU_CCSD_F32_ONLY", "1")
     t1f, t2f, _, delta = tccsd.ccsd_so_batched(eri_mo[None], moe[None], ns)
-    lt1, lt2, _, _ = tccsd.ccsd_so_large(eri_mo, moe, ns)
-    assert t1f.dtype == t2f.dtype == lt2.dtype == torch.float64
-    assert float(delta.max()) <= 1e-5
-    for a, b in ((t1f[0], t1[0]), (t2f[0], t2[0]), (lt1, t1[0]),
-                 (lt2, t2[0])):
+    rt1, rt2, _, rdelta = rccsd._rccsd_from_mo_batched(
+        eri_mo[None], moe[None], ns, f32_only=True)
+    assert t1f.dtype == t2f.dtype == rt2.dtype == torch.float64
+    assert max(float(delta.max()), float(rdelta.max())) <= 1e-5
+    for a, b in ((t1f[0], t1[0]), (t2f[0], t2[0]), (rt1[0], t1[0]),
+                 (rt2[0], t2[0])):
         assert (a - b).abs().max() < 1e-5
 
 

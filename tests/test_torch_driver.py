@@ -7,9 +7,11 @@
   one-shot MP2 ``ebe_tot`` at 1e-9;
 - full-basis RDMs: ``rdm1_fullbasis`` in every return mode after an H8 BE2
   one-shot at 1e-9, ``compute_energy_full`` in both modes at 1e-8;
-- the large-fragment path: ``_solve_bucket_large`` on H8 BE2 fragments,
-  CCSD and MP2, cumulant and not, against the JAX function at 1e-9 and
-  (CCSD) against the port's batched path; the routing predicate;
+- wide fragments solved alone: the plan split into one bucket a fragment
+  (the predicate forced, as on a card above nemb 48) on H8 BE2, CCSD and
+  MP2, cumulant and not, against the JAX package's large path (CCSD) and
+  its batched MP2 at 1e-9, and against the port's merged plan; the
+  predicate's table and the plans it gives on a card and on the CPU;
 - SCI and DMRG: ``solve_sci`` against the original at 1e-10, H8 BE1
   chemical-potential SCI against FCI at 1e-6, the DMRG gating message and
   the adapter on a mocked block2 driver;
@@ -212,7 +214,7 @@ def test_compute_energy_full_matches_jax(h8_solved, approx_cumulant):
     assert abs(be.ebe_tot - e) < 1e-12
 
 
-# ------------------------------------------------------ large-fragment path
+# ------------------------------------------------- wide fragments alone
 @pytest.fixture(scope="module")
 def h8_potential(h8_mfs):
     """An H8 BE2 pair with the same seeded matching potential set on every
@@ -225,62 +227,111 @@ def h8_potential(h8_mfs):
     return jbe, be
 
 
+@pytest.fixture
+def split_plan(monkeypatch):
+    """The plan a card makes of fragments wider than 48, forced on every
+    class: one bucket a fragment, no pads; returns the sizes of the buckets
+    that ``_solve_bucket_batched`` gets."""
+    sizes = []
+    inner = dispatch._solve_bucket_batched
+
+    def counted(frs, *args, **kwargs):
+        sizes.append(len(frs))
+        return inner(frs, *args, **kwargs)
+
+    monkeypatch.setattr(dispatch, "_solved_alone", lambda *a: True)
+    monkeypatch.setattr(dispatch, "_solve_bucket_batched", counted)
+    return sizes
+
+
 @pytest.mark.parametrize("solver", ["CCSD", "MP2"])
 @pytest.mark.parametrize("use_cumulant", [True, False])
-def test_large_path_matches_jax(h8_potential, solver, use_cumulant):
-    """Fragment at a time: the energies and every fragment's 1-RDM in the
-    embedding basis at 1e-9."""
+def test_large_path_matches_jax(h8_potential, split_plan, solver,
+                                use_cumulant):
+    """Each fragment a bucket of its own: the energies and every
+    fragment's 1-RDM in the embedding basis at 1e-9 against the JAX
+    package's fragment-at-a-time path (CCSD) and against its batched MP2,
+    one fragment a bucket (its large path gives MP2 the CCSD form of the
+    RDMs with t1 = 0: no correlation in the density)."""
     jbe, be = h8_potential
-    out = dispatch._solve_bucket_large(be.fragments, solver, True,
-                                       use_cumulant)
-    ref = jax_dispatch._solve_bucket_large(jbe.fragments, solver, True,
-                                           use_cumulant)
+    plan = dispatch.form_merge_classes(be.fragments, solver)
+    assert [[p for _, p in c] for c in plan] == [[(0, 0)]] * len(plan)
+    assert len(plan) == len(be.fragments)
+    out = dispatch.be_func(None, be.fragments, be.Nocc, solver, eeval=True,
+                           use_cumulant=use_cumulant)[1]
+    assert split_plan == [1] * len(be.fragments)
+    if solver == "CCSD":
+        ref = jax_dispatch._solve_bucket_large(jbe.fragments, solver, True,
+                                               use_cumulant)
+    else:
+        ref = np.sum([jax_dispatch._solve_bucket_batched(
+            [jfr], solver, True, use_cumulant, False)
+            for jfr in jbe.fragments], axis=0)
     assert np.abs(np.array(out) - np.array(ref)).max() < 1e-9
     for fr, jfr in zip(be.fragments, jbe.fragments):
         assert np.abs(fr._rdm1 - np.asarray(jfr._rdm1)).max() < 1e-9
         assert abs(fr.ebe - jfr.ebe) < 1e-9
-    assert dispatch._solve_bucket_large(be.fragments, solver, False,
-                                        use_cumulant) is None
+    assert dispatch._solve_bucket(be.fragments[:1], solver, False,
+                                  use_cumulant, False) is None
 
 
 @pytest.mark.parametrize("use_cumulant", [True, False])
 def test_large_path_matches_batched_path(h8_potential, monkeypatch,
                                          use_cumulant):
-    """CCSD through ``be_func`` once routed to the large path and once to
-    the batched one: the error vector and the energies at 1e-9."""
+    """CCSD through ``be_func`` once on the split plan, one bucket a
+    fragment, and once on the merged plan: the error vector and the
+    energies at 1e-9; a bucket of one works on its fragment's ERI."""
     _, be = h8_potential
     kw = dict(eeval=True, return_vec=True, use_cumulant=use_cumulant)
     pot = np.random.default_rng(3).standard_normal(len(be.pot)) * 1e-3
+    merged = dispatch.form_merge_classes(be.fragments, "CCSD")
     batched = dispatch.be_func(pot, be.fragments, be.Nocc, "CCSD", **kw)
-    large_calls = []
-
-    def counted(frs, *args):
-        large_calls.append(len(frs))
-        return large(frs, *args)
-
-    large = dispatch._solve_bucket_large
-    monkeypatch.setattr(dispatch, "_takes_large_path", lambda *a: True)
-    monkeypatch.setattr(dispatch, "_solve_bucket_large", counted)
+    monkeypatch.setattr(dispatch, "_solved_alone", lambda *a: True)
+    split = dispatch.form_merge_classes(be.fragments, "CCSD")
+    assert len(merged) < len(split) == len(be.fragments)
     out = dispatch.be_func(pot, be.fragments, be.Nocc, "CCSD", **kw)
-    assert sum(large_calls) == len(be.fragments)
     assert abs(out[0] - batched[0]) < 1e-9
     assert np.abs(out[1] - batched[1]).max() < 1e-9
     assert abs(out[2][0] - batched[2][0]) < 1e-9
+    for fr in be.fragments:  # a bucket of one holds no copy of its ERI
+        assert fr._bucket_cache["dev"]["eri"].data_ptr() == fr.eri.data_ptr()
 
 
 def test_large_path_routing():
-    """The JAX package's routing: on a card, CCSD and MP2 buckets wider
-    than 48; never on the CPU, never the CI solvers."""
+    """The JAX package's routing, decided by the plan alone: on a card,
+    CCSD and MP2 classes wider than 48 become one unpadded bucket a
+    fragment; never on the CPU, never for the CI solvers."""
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
     assert dispatch._NEMB_BATCHED_MAX == 48
-    assert dispatch._takes_large_path(49, cuda, "CCSD")
-    assert dispatch._takes_large_path(54, cuda, "MP2")
-    assert not dispatch._takes_large_path(48, cuda, "CCSD")
-    assert not dispatch._takes_large_path(54, cuda, "FCI")
+    assert dispatch._solved_alone(49, cuda, "CCSD")
+    assert dispatch._solved_alone(54, cuda, "MP2")
+    assert not dispatch._solved_alone(48, cuda, "CCSD")
+    assert not dispatch._solved_alone(54, cuda, "FCI")
     for solver in ("CCSD", "MP2", "FCI"):
-        assert not dispatch._takes_large_path(200, cpu, solver)
-    with pytest.raises(NotImplementedError, match="CCSD/MP2, not FCI"):
-        dispatch._solve_bucket_large([], "FCI", True, True)
+        assert not dispatch._solved_alone(200, cpu, solver)
+
+    def fragments(device):
+        # octane BE3's widths, two of one shape, beside a narrow pair
+        shapes = [(57, 29), (57, 29), (54, 27), (41, 21), (40, 22)]
+        eri = types.SimpleNamespace(device=device)
+        return [types.SimpleNamespace(nao=n, nsocc=o, eri=eri)
+                for n, o in shapes]
+
+    def plan(frs, solver):
+        ids = [id(fr) for fr in frs]  # stand-ins of one shape compare equal
+        return [[(ids.index(id(fr)), p) for fr, p in c]
+                for c in dispatch.form_merge_classes(frs, solver)]
+
+    frs = fragments(cuda)
+    for solver in ("CCSD", "MP2"):
+        assert plan(frs, solver) == [[(0, (0, 0))], [(1, (0, 0))],
+                                     [(2, (0, 0))],
+                                     [(3, (1, 0)), (4, (0, 2))]]
+    assert plan(frs, "FCI") == [[(0, (0, 0)), (1, (0, 0))], [(2, (0, 0))],
+                                [(3, (0, 0))], [(4, (0, 0))]]
+    assert plan(fragments(cpu), "CCSD") == [
+        [(0, (0, 0)), (1, (0, 0))], [(2, (0, 0))],
+        [(3, (1, 0)), (4, (0, 2))]]
 
 
 # ------------------------------------------------------------ SCI, DMRG

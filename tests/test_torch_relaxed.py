@@ -6,7 +6,7 @@ the JAX package's, and density matching with ``relax_density=True``.
   port alone, the trace identity E_elec = tr(h g1) + 0.5 eri : g2 at
   1e-10, tr(g1) = 2 nsocc at 1e-9, and a central finite difference of
   E_elec along a one-body perturbation at 1e-7;
-- the relaxed bucket never takes the large-fragment path;
+- the plan never solves a relaxed fragment alone;
 - H8 BE2 ``optimize(solver="CCSD", relax_density=True)`` against the JAX
   package's: ``ebe_tot`` at 1e-6, and within 1e-2 Ha of the unrelaxed
   matched energy, as the JAX package's own test holds it.
@@ -86,10 +86,10 @@ def test_trace_identity_and_finite_difference():
 def test_relaxed_bucket_is_never_large():
     cuda = torch.device("cuda")
     for solver in ("CCSD", "MP2"):
-        assert dispatch._takes_large_path(60, cuda, solver)
-        assert not dispatch._takes_large_path(60, cuda, solver,
-                                              relax_density=True)
-    assert not dispatch._takes_large_path(60, torch.device("cpu"), "CCSD")
+        assert dispatch._solved_alone(60, cuda, solver)
+        assert not dispatch._solved_alone(60, cuda, solver,
+                                          relax_density=True)
+    assert not dispatch._solved_alone(60, torch.device("cpu"), "CCSD")
 
 
 def test_h8_relaxed_matching_matches_jax():

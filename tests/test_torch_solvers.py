@@ -290,7 +290,8 @@ def test_merge_plan_per_solver_matches_jax():
     from types import SimpleNamespace
 
     shapes = [(41, 21)] * 4 + [(40, 22)] * 2
-    frs = [SimpleNamespace(nao=n, nsocc=o) for n, o in shapes]
+    cpu = SimpleNamespace(device=torch.device("cpu"))
+    frs = [SimpleNamespace(nao=n, nsocc=o, eri=cpu) for n, o in shapes]
 
     def plan(classes):
         return [[(frs.index(fr), p) for fr, p in c] for c in classes]
@@ -310,8 +311,9 @@ def test_unported_paths_raise(h8_pair, monkeypatch):
     """What the bucket solve still refuses: the external SHCI/HCI solvers
     (the JAX package's message), unknown solvers, and bucket-merge pads
     beside a host CI solver, relaxed densities or the spin-orbital kernel
-    (the JAX package's messages).  Relaxed densities and the spin-orbital
-    kernel themselves run, and give the JAX package's objective: 1e-8."""
+    (one message, the JAX package's words for the first two).  Relaxed
+    densities and the spin-orbital kernel themselves run, and give the
+    JAX package's objective: 1e-8."""
     jbe, be = h8_pair
     frs = be.fragments
     for solver in ("SHCI", "HCI"):
@@ -338,6 +340,6 @@ def test_unported_paths_raise(h8_pair, monkeypatch):
         assert abs(out[0] - ref[0]) < 1e-8
         assert np.abs(out[1] - ref[1]).max() < 1e-8
         assert abs(out[2][0] - ref[2][0]) < 1e-8
-    with pytest.raises(ValueError, match="QUEMB_TPU_MERGE_BUCKETS=0"):
+    with pytest.raises(ValueError, match="CCSD/MP2 only"):
         dispatch._solve_bucket_batched(frs[:1], "CCSD", False, True, False,
                                        pads=((1, 0),))

@@ -73,14 +73,19 @@ def test_counters_of_a_padded_bucket(job):
     assert cc.counters["lanes"] == 2
     assert cc.counters["orbs"] == 31 + 34
     assert cc.counters["pad_orbs"] == 2 * 34 - (31 + 34)
-    # the CPU never takes the large-fragment path
+    # no lane is wider than the batched width
     assert cc.counters.get("large", 0) == 0
 
 
-def test_large_path_counts_each_fragment(job):
+def test_large_path_counts_each_fragment(job, monkeypatch):
+    """The plan a card makes of fragments wider than the batched width,
+    here lowered below both widths: one bucket a fragment, each counted
+    as ``large`` and a lane, and neither as ``orbs``."""
     be, _ = job
+    monkeypatch.setattr(dispatch, "_NEMB_BATCHED_MAX", 30)
+    monkeypatch.setattr(dispatch, "_solved_alone", lambda *a: True)
     with P.span("probe") as probe:
-        dispatch._solve_bucket_large(be.fragments, "CCSD", True, True)
+        dispatch.be_func(None, be.fragments, be.Nocc, "CCSD", eeval=True)
     trace = next(t for t in P.traces() if t.id == probe.trace)
     found = _by_name(trace, "ccsd")
     assert len(found) == 2
